@@ -1,0 +1,162 @@
+"""Time the weight kernel on the card, beside its plain version, the weight
+stage around it and, optionally, an earlier build of the kernel.
+
+    python -m abcsmc_tpu_torch.bench_kernel [--baseline OLD.cu] [--out F]
+
+For each main-path shape (2,048^2 x 16, the dengue_surrogate keep; and
+50,000^2 x 6, the 1M cell's keep) and each mode it prints one JSON line:
+CUDA-event milliseconds per call (mean over ``--reps`` calls after a
+warm-up), the max abs difference from the plain version, and the weight
+stage (``weights.weight_predictive_prior`` with a flat prior: scaling,
+kernel, normalisation). ``--baseline`` takes a source with the first port's
+C interface (``mixture_logsumexp_f32(a, b, lw_shift, max_lw, part_max,
+part_sum, out, n, m, p, n_split, centers_per_split, online, stream)``),
+builds it with the same nvcc flags and times it through that interface's
+own wrapper logic, in turns with the current kernel (old, new, new, old).
+Needs a CUDA device; exits 2 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from abcsmc_tpu_torch.ops import kernels, weights
+from abcsmc_tpu_torch.ops._build import load_library
+
+SHAPES = ((2048, 2048, 16), (50_000, 50_000, 6))
+MODES = ("auto", "static", "online")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call: CUDA events around ``reps`` calls after
+    one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def weight_inputs(n, m, p, seed, dev):
+    """Unscaled (params, prev, w, dv) as the weight stage gets them."""
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=dev)
+    params = torch.as_tensor(rng.uniform(0, 1, (n, p)), **f32)
+    prev = torch.as_tensor(rng.uniform(0.2, 0.8, (m, p)), **f32)
+    w = rng.uniform(0.5, 1.5, m)
+    dv = torch.as_tensor(rng.uniform(0.01, 0.1, p), **f32)
+    return params, prev, torch.as_tensor(w / w.sum(), **f32), dv
+
+
+def first_port_runner(src: str):
+    """A callable (a, b, log_w, mode) running ``src`` through the first
+    port's wrapper logic: the clamp, max_lw and shift as torch ops, a
+    device-properties query per launch, and auto as static plus a host
+    all-finite check and an online rerun."""
+    fn = load_library("baseline_mixture_logsumexp", src).mixture_logsumexp_f32
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.restype = ci
+    fn.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+
+    def launch(a, b, shift, max_lw, online):
+        n, p = a.shape
+        m = b.shape[0]
+        sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+        q_blocks = -(-n // 128)
+        n_split = max(1, min(-(-4 * sms // q_blocks), -(-m // 64)))
+        cps = -(-m // n_split)
+        n_split = -(-m // cps)
+        out = torch.empty((n,), dtype=torch.float32, device=a.device)
+        psum = torch.empty((n_split, n), dtype=torch.float32, device=a.device)
+        pmax = torch.empty_like(psum) if online else psum
+        err = fn(a.data_ptr(), b.data_ptr(), shift.data_ptr(),
+                 max_lw.data_ptr(), pmax.data_ptr(), psum.data_ptr(),
+                 out.data_ptr(), n, m, p, n_split, cps, int(online),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"baseline kernel: cudaError {err}")
+        return out
+
+    def run(a, b, log_w, mode):
+        lw = torch.clamp_min(log_w, kernels.NEG_INF)
+        max_lw = kernels._max_lw(lw).reshape(1)
+        shift = (lw - max_lw).contiguous()
+        if mode == "online":
+            return launch(a, b, shift, max_lw, True)
+        out = launch(a, b, shift, max_lw, False)
+        if mode == "static" or bool(torch.isfinite(out).all()):
+            return out
+        return launch(a, b, shift, max_lw, True)
+
+    return run
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", help="source of an earlier kernel build")
+    ap.add_argument("--out", help="also write the JSON lines to this file")
+    ap.add_argument("--reps", type=int, default=0,
+                    help="calls per timing (default 20 small, 10 large)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("bench_kernel: needs a CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip()
+    lines = [{"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}]
+    old = first_port_runner(args.baseline) if args.baseline else None
+    for n, m, p in SHAPES:
+        params, prev, w, dv = weight_inputs(n, m, p, n + p, dev)
+        a, b, _ = weights._prep_scaled(params, prev, dv)
+        a, b = a.contiguous(), b.contiguous()
+        lw = torch.log(w)
+        reps = args.reps or (20 if n < 10_000 else 10)
+        for mode in MODES:
+            row = {"shape": [n, m, p], "mode": mode}
+            ref = kernels.mixture_logsumexp_reference(a, b, lw, mode=mode)
+            new = lambda: kernels.mixture_logsumexp(a, b, lw, mode=mode)  # noqa: E731
+            row["max_abs_err"] = float((new() - ref).abs().max())
+            if old is not None:
+                prv = lambda: old(a, b, lw, mode)  # noqa: E731
+                row["baseline_max_abs_err"] = float((prv() - ref).abs().max())
+                t = [cuda_ms(f, reps) for f in (prv, new, new, prv)]
+                row["baseline_ms"] = [t[0], t[3]]
+                row["ms"] = [t[1], t[2]]
+            else:
+                row["ms"] = [cuda_ms(new, reps)]
+            row["plain_ms"] = cuda_ms(
+                lambda: kernels.mixture_logsumexp_reference(a, b, lw,
+                                                            mode=mode), reps)
+            lines.append(row)
+            print(json.dumps(row), flush=True)
+        flat = lambda th: torch.zeros(th.shape[0], device=dev)  # noqa: E731
+        stage = {"shape": [n, m, p], "weight_stage_ms": cuda_ms(
+            lambda: weights.weight_predictive_prior(params, prev, w, dv,
+                                                    flat), reps)}
+        lines.append(stage)
+        print(json.dumps(stage), flush=True)
+        del params, prev, w, dv, a, b, lw
+    print(json.dumps(lines[0]), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.writelines(json.dumps(x) + "\n" for x in lines)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

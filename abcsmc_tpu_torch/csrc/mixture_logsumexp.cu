@@ -7,189 +7,485 @@
 // This is the O(N * M * P) weight denominator of the reference's
 // src/AbcUtil.cpp:563-578 loop.
 //
-// Replaces abcsmc_tpu/ops/pallas_kernels.py::_mixture_kernel_static and
-// ::_mixture_kernel_online (launched by _pallas_logsumexp). It computes what
-// they compute, not block by block:
+// Replaces abcsmc_tpu/ops/pallas_kernels.py::mixture_logsumexp (the
+// wrapper's clamp, max_lw bound and augmentation), ::_mixture_kernel_static,
+// ::_mixture_kernel_online and ::_dot_logits (precision "high"), launched
+// there by ::_pallas_logsumexp.
 //
-// - Both modes live in one templated kernel. STATIC sums exp(logit - max_lw)
-//   with the a-priori bound max_lw = max_j log_w[j] (logit <= max_lw because
-//   the distance term is <= 0), so it needs no running max; ONLINE keeps a
-//   flash-style running max and is sound for any input. The wrapper
-//   (ops/kernels.py) clamps -inf weights to -1e30, computes max_lw on the
-//   device and passes log_w - max_lw, so the -1e30 clamp, the max_lw rule
-//   and the final + max_lw are exactly the TPU wrapper's.
-// - The logit is -0.5 * sum_p (a - b)^2 + lw on CUDA cores in exact FP32
-//   FMA. The TPU kernel folded the affine terms into an augmented (p+2)-wide
-//   MXU dot only to keep its vector unit idle; a contraction of 8 or 18
-//   terms is far too narrow for tensor cores to matter, and the direct
-//   difference form does not cancel. All three `precision` values of the
-//   JAX wrapper map to this FP32 path (3xTF32 / wgmma is later work).
-// - Layout: one query row per thread, held in registers; tiles of centers
-//   (b, lw) stream through shared memory and are read as warp broadcasts.
-//   At keep = 2,048 there are too few query blocks to fill 132 SMs, so the
-//   center axis is split across blockIdx.y: each block writes a partial
-//   (max, sum) pair per row and a second small kernel combines them. No
-//   result carries between blocks.
-// - Accuracy: expf/logf (the full-precision CUDA math library functions,
-//   max error 2 ulp), never the unchecked __expf intrinsic; no fast-math.
+// What bounds it: one exponential per logit. At 50,000 x 50,000 that is
+// 2.5e9 ex2 on the special-function units, 16 per SM per clock: 132 SMs x
+// 16 x 1.98 GHz = 4.18e12/s, 0.60 ms. The dot is 2 (p+2) flops per logit
+// (0.08 ms at TF32's 495 TFLOP/s, x3 for the split) and the inputs are
+// 2.4 MB (~1 us at 3.35 TB/s). So the design keeps every other pipe below
+// the SFU:
 //
-// Bound: exp throughput plus FP32 FMA, not memory. At 50,000 x 50,000 x 6
-// there are 2.5e9 logits, each p FMAs + one expf, against 2 x 50,000 x 6
-// floats of input.
+// - Logits on tensor cores, 3xTF32 (the Hopper form of the TPU's packed
+//   split for precision "high"). The operands are augmented as the TPU
+//   wrapper does, a_aug = [a, log2(e) (-|a|^2/2 - max_lw) + 64, 1] and
+//   b_aug = [log2(e) b, 1, log2(e) (lw - |b|^2/2)], so one dot is the
+//   whole logit in log2 units, and the two large folded terms meet an
+//   exact 1 (~2^-23 relative error each). K = p+2 is padded to a multiple
+//   of 8 and looped over, so any p runs. Each operand is split into a TF32
+//   hi part and the TF32-rounded residual; hi.hi + hi.lo + lo.hi
+//   accumulate in FP32 with mma.sync.m16n8k8 (~2^-21 relative per product
+//   term; see hi_step for the order).
+// - ex2.approx.ftz on the pre-scaled logits (one MUFU op, no range
+//   reduction); the log is finished as log2 x ln 2.
+// - STATIC sums ex2(logit + 64) with the a-priori bound max_lw =
+//   max_j log_w[j] folded in (the logit is then <= 0), so a row whose sum
+//   underflows comes out -inf as on the TPU (see kHeadroom).
+// - ONLINE keeps a running max per thread and row, but moves it lazily:
+//   only when a pair of new logits exceeds it by more than kTau (2^8),
+//   tested once per 8-center tile with a warp vote; every term is then
+//   <= 2^kTau and the rescale is off the per-logit path. The four threads
+//   that share a row merge by shuffles.
+// - AUTO runs STATIC, whose merge raises a device flag on any non-finite
+//   row, then launches ONLINE, which returns at once unless the flag is
+//   up: the TPU wrapper's lax.cond rerun, with no host sync.
+// - The query fragments (hi and lo) stay in registers for the whole kernel
+//   when K <= 32; the b_aug tiles are written once, in mma fragment order,
+//   by the prologue and stream through shared memory with cp.async, double
+//   buffered, so tile t+1 loads while tile t multiplies and exponentiates.
+//   For K > 32 both operands come through L1 instead.
+// - The center axis is split across blockIdx.y (at keep 2,048 there are only
+//   16 query blocks for 132 SMs); the last block of each query block to
+//   finish merges the splits' partials (an arrival counter, no extra pass).
+//
+// One call is two launches (three in AUTO): the prologue (the -1e30 clamp,
+// per-block maxima of the live log-weights, b_aug; the clamp and the max_lw
+// rule are the TPU wrapper's, pallas_kernels.py:209-215) and the partial
+// kernel(s).
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;  // query rows per block (one per thread)
-constexpr int kTile = 128;     // centers per shared-memory tile
+constexpr int kThreads = 128;      // 4 warps
+constexpr int kMT = 2;             // m16 tiles per warp: 32 query rows
+constexpr int kRows = 4 * 16 * kMT;  // query rows per block
+constexpr int kStageTiles = 8;     // n8 tiles per stage
+constexpr int kStageCenters = 8 * kStageTiles;
+constexpr int kPrologueThreads = 256;
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF sentinel
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kTau = 8.f;        // lazy-max slack, log2 units
+// Headroom folded into every live logit (log2 units): STATIC sums terms of
+// up to 2^64 (m < 2^31 of them stay below 2^128), and a term reaches the
+// flush-to-zero floor of ex2.approx.ftz (2^-126) only 190 below max_lw
+// rather than 126, which is past the 2^-149 floor of an FP32 exp.
+constexpr float kHeadroom = 64.f;
+constexpr unsigned kFull = 0xffffffffu;
 
-template <int P, bool ONLINE>
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Column `col` of row `r` of a_aug = [a, ca, 1, 0...] (ca in log2 units).
+__device__ __forceinline__ float a_aug(const float* __restrict__ a, int r,
+                                       int col, int n, int p, float ca) {
+  if (col < p) return r < n ? a[(size_t)r * p + col] : 0.f;
+  if (col == p) return ca;
+  return col == p + 1 ? 1.f : 0.f;
+}
+
+// b_aug in mma B-fragment order: for n8 tile nt and k-step s, lane
+// (g = center % 8, t) holds float4 {b0 hi, b1 hi, b0 lo, b1 lo} with
+// b0 = B[k = 8s + t][g] and b1 = B[k = 8s + t + 4][g]. Dead centers (sentinel
+// weight or padding) are all zero but for the weight column, which holds
+// the TF32-exact sentinel, so their logit is exactly that sentinel.
+__global__ void __launch_bounds__(kPrologueThreads)
+prologue_kernel(const float* __restrict__ b, const float* __restrict__ log_w,
+                int m, int p, int ks, int m_pad, float* __restrict__ bfrag,
+                float* __restrict__ part_lwmax, int* __restrict__ arrivals,
+                int q_blocks, int* __restrict__ flag) {
+  __shared__ float red[kPrologueThreads / 32];
+  const int j = blockIdx.x * kPrologueThreads + threadIdx.x;
+  for (int i = j; i < q_blocks; i += gridDim.x * kPrologueThreads)
+    arrivals[i] = 0;
+  if (j == 0) *flag = 0;
+  const float lw = j < m ? fmaxf(log_w[j], kNegInf) : kNegInf;
+  const bool live = lw > 0.5f * kNegInf;
+
+  float mx = live ? lw : -INFINITY;
+  for (int o = 16; o > 0; o >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kPrologueThreads / 32; ++w) mx = fmaxf(mx, red[w]);
+    part_lwmax[blockIdx.x] = mx;
+  }
+  if (j >= m_pad) return;
+
+  float bsq = 0.f;
+  if (live)
+    for (int c = 0; c < p; ++c) {
+      const float v = b[(size_t)j * p + c];
+      bsq = fmaf(v, v, bsq);
+    }
+  const float sentinel = __uint_as_float(to_tf32(kNegInf * kLog2e));
+  const int nt = j >> 3, g = j & 7;
+  for (int k = 0; k < 8 * ks; ++k) {
+    float v;
+    if (!live) {
+      v = k == p + 1 ? sentinel : 0.f;
+    } else if (k < p) {
+      v = kLog2e * b[(size_t)j * p + k];
+    } else if (k == p) {
+      v = 1.f;
+    } else {
+      v = k == p + 1 ? kLog2e * fmaf(-0.5f, bsq, lw) : 0.f;
+    }
+    uint32_t hi, lo;
+    split_tf32(v, hi, lo);
+    const int kk = k & 7;
+    const size_t o =
+        (((size_t)nt * ks + (k >> 3)) * 32 + g * 4 + (kk & 3)) * 4 + (kk >> 2);
+    bfrag[o] = __uint_as_float(hi);
+    bfrag[o + 2] = __uint_as_float(lo);
+  }
+}
+
+// Per-thread, per-row logsumexp state over the logits it has seen (log2
+// units): the running max mx, its move threshold th = mx + kTau and the sum
+// sm. STATIC keeps the sum only (the max is the a-priori 0).
+template <bool ONLINE>
+__device__ __forceinline__ void accumulate(const float (&d)[4],
+                                           float (&mx)[2], float (&th)[2],
+                                           float (&sm)[2]) {
+  if (ONLINE) {
+    const float c0 = fmaxf(d[0], d[1]);
+    const float c1 = fmaxf(d[2], d[3]);
+    if (__any_sync(kFull, c0 > th[0] || c1 > th[1])) {
+      if (c0 > th[0]) {
+        sm[0] *= ex2(mx[0] - c0);
+        mx[0] = c0;
+        th[0] = c0 + kTau;
+      }
+      if (c1 > th[1]) {
+        sm[1] *= ex2(mx[1] - c1);
+        mx[1] = c1;
+        th[1] = c1 + kTau;
+      }
+    }
+    sm[0] += ex2(d[0] - mx[0]) + ex2(d[1] - mx[0]);
+    sm[1] += ex2(d[2] - mx[1]) + ex2(d[3] - mx[1]);
+  } else {
+    sm[0] += ex2(d[0]) + ex2(d[1]);
+    sm[1] += ex2(d[2]) + ex2(d[3]);
+  }
+}
+
+struct PartialArgs {
+  const float* a;
+  const float4* bfrag;
+  const float* lwmax;  // per-prologue-block maxima of the live log-weights
+  int n_lwmax, n, p, ks, n_stages, stages_per_split, n_split;
+  float* part_max;     // [n_split, n] (ONLINE only)
+  float* part_sum;     // [n_split, n]
+  int* arrivals;       // [q_blocks], 0 on entry and on exit
+  int* flag_out;       // static pass of auto: set to 1 on a non-finite row
+  const int* gate;     // online pass of auto: return at once if *gate == 0
+  float* out;          // [n]
+};
+
+// One hi.hi product of k-step s on top of d: into d itself for the first
+// k-step (d then holds only the small terms), else into a fresh accumulator
+// added in FP32. The tensor cores align each sum to its largest term and
+// truncate, so an accumulator that carries the large partial logit from
+// k-step to k-step loses ~1 ulp of it per mma; this keeps it to one.
+__device__ __forceinline__ void hi_step(float (&d)[4], const uint32_t (&hi)[4],
+                                        const float4& bv, bool first) {
+  const uint32_t b0 = __float_as_uint(bv.x), b1 = __float_as_uint(bv.y);
+  if (first) {
+    mma_tf32(d, hi, b0, b1);
+  } else {
+    float e[4] = {};
+    mma_tf32(e, hi, b0, b1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[i] += e[i];
+  }
+}
+
+// KS > 0: K = 8 KS, query fragments in registers, b_aug stages through
+// shared memory (cp.async, two buffers). KS == 0: any K (ks k-steps), both
+// operands read through L1. Each block writes its partial (max, sum) per
+// row; the last of the n_split blocks of a query block to arrive merges
+// them and writes out[] (no separate combine launch).
+template <int KS, bool ONLINE>
 __global__ void __launch_bounds__(kThreads)
-mixture_partial_kernel(const float* __restrict__ a,
-                       const float* __restrict__ b,
-                       const float* __restrict__ lw_shift,
-                       int n, int m, int p, int centers_per_split,
-                       float* __restrict__ part_max,
-                       float* __restrict__ part_sum) {
-  __shared__ float sb[kTile][P];
-  __shared__ float slw[kTile];
+mixture_partial_kernel(const PartialArgs A) {
+  static_assert(kRows == kThreads, "the merge takes one row per thread");
+  constexpr int kStage = KS > 0 ? kStageTiles * KS * 32 : 1;  // float4s
+  __shared__ __align__(16) float4 sb[KS > 0 ? 2 : 1][kStage];
+  __shared__ float s_max_lw;
+  __shared__ bool s_last;
 
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  const int split = blockIdx.y;
-  const int j_begin = split * centers_per_split;
-  const int j_end = min(m, j_begin + centers_per_split);
+  if (A.gate != nullptr && *A.gate == 0) return;  // auto: nothing to rerun
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n = A.n, p = A.p;
 
-  float q[P];
-#pragma unroll
-  for (int c = 0; c < P; ++c) {
-    q[c] = (row < n && c < p) ? a[(size_t)row * p + c] : 0.f;
+  // max_lw: the largest live log-weight, 0 when there is none
+  if (warp == 0) {
+    float mx = -INFINITY;
+    for (int i = lane; i < A.n_lwmax; i += 32) mx = fmaxf(mx, A.lwmax[i]);
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+    if (lane == 0) s_max_lw = isfinite(mx) ? mx : 0.f;
   }
 
-  float run_max = kNegInf;
-  float run_sum = 0.f;
-
-  for (int j0 = j_begin; j0 < j_end; j0 += kTile) {
-    const int cnt = min(kTile, j_end - j0);
-    __syncthreads();  // the previous tile is fully consumed
-    for (int idx = threadIdx.x; idx < kTile * P; idx += kThreads) {
-      const int r = idx / P;
-      const int c = idx - r * P;
-      sb[r][c] = (r < cnt && c < p) ? b[(size_t)(j0 + r) * p + c] : 0.f;
-    }
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
-      slw[r] = (r < cnt) ? lw_shift[j0 + r] : kNegInf;
-    }
-    __syncthreads();
-
-    for (int r = 0; r < cnt; ++r) {
-      float d = 0.f;
-#pragma unroll
-      for (int c = 0; c < P; ++c) {
-        const float t = q[c] - sb[r][c];
-        d = fmaf(t, t, d);
+  const int st_begin = blockIdx.y * A.stages_per_split;
+  const int st_end = min(A.n_stages, st_begin + A.stages_per_split);
+  auto issue = [&](int st, int buf) {
+    if constexpr (KS > 0) {
+      const float4* src = A.bfrag + (size_t)st * kStage;
+      for (int i = threadIdx.x; i < kStage; i += kThreads) {
+        const uint32_t dst =
+            static_cast<uint32_t>(__cvta_generic_to_shared(&sb[buf][i]));
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+                     "l"(src + i));
       }
-      const float logit = fmaf(-0.5f, d, slw[r]);
-      if (ONLINE) {
-        if (logit > run_max) {
-          run_sum = fmaf(run_sum, expf(run_max - logit), 1.f);
-          run_max = logit;
-        } else {
-          run_sum += expf(logit - run_max);
+      asm volatile("cp.async.commit_group;");
+    }
+  };
+  issue(st_begin, 0);
+  __syncthreads();  // s_max_lw
+  const float max_lw = s_max_lw;
+
+  // rows of this thread: r[mt][h] = base + 16 mt + g + 8 h
+  int r[kMT][2];
+  float ca[kMT][2];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      r[mt][h] = blockIdx.x * kRows + warp * 16 * kMT + 16 * mt + g + 8 * h;
+      float sq = 0.f;
+      if (r[mt][h] < n)
+        for (int c = t; c < p; c += 4) {
+          const float v = A.a[(size_t)r[mt][h] * p + c];
+          sq = fmaf(v, v, sq);
         }
-      } else {
-        run_sum += expf(logit);
-      }
+      sq += __shfl_xor_sync(kFull, sq, 1);
+      sq += __shfl_xor_sync(kFull, sq, 2);
+      ca[mt][h] = fmaf(kLog2e, fmaf(-0.5f, sq, -max_lw), kHeadroom);
     }
+
+  auto a_frag = [&](int s, int mt, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+    const int c0 = 8 * s + t;
+    split_tf32(a_aug(A.a, r[mt][0], c0, n, p, ca[mt][0]), hi[0], lo[0]);
+    split_tf32(a_aug(A.a, r[mt][1], c0, n, p, ca[mt][1]), hi[1], lo[1]);
+    split_tf32(a_aug(A.a, r[mt][0], c0 + 4, n, p, ca[mt][0]), hi[2], lo[2]);
+    split_tf32(a_aug(A.a, r[mt][1], c0 + 4, n, p, ca[mt][1]), hi[3], lo[3]);
+  };
+  uint32_t ahi[KS > 0 ? KS : 1][kMT][4], alo[KS > 0 ? KS : 1][kMT][4];
+  if constexpr (KS > 0) {
+#pragma unroll
+    for (int s = 0; s < KS; ++s)
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) a_frag(s, mt, ahi[s][mt], alo[s][mt]);
   }
 
-  if (row < n) {
-    const size_t o = (size_t)split * n + row;
-    part_sum[o] = run_sum;
-    if (ONLINE) part_max[o] = run_max;
+  float mx[kMT][2], th[kMT][2], sm[kMT][2];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[mt][h] = th[mt][h] = -INFINITY;
+      sm[mt][h] = 0.f;
+    }
+
+  for (int st = st_begin, it = 0; st < st_end; ++st, ++it) {
+    const float4* tile;
+    if constexpr (KS > 0) {
+      if (st + 1 < st_end) {
+        issue(st + 1, (it + 1) & 1);
+        asm volatile("cp.async.wait_group 1;");
+      } else {
+        asm volatile("cp.async.wait_group 0;");
+      }
+      __syncthreads();
+      tile = sb[it & 1];
+    } else {
+      tile = A.bfrag + (size_t)st * kStageTiles * A.ks * 32;
+    }
+#pragma unroll 2
+    for (int nt = 0; nt < kStageTiles; ++nt) {
+      float d[kMT][4] = {};
+      if constexpr (KS > 0) {
+        float4 bv[KS];
+#pragma unroll
+        for (int s = 0; s < KS; ++s) {  // small terms first
+          bv[s] = tile[(nt * KS + s) * 32 + lane];
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            mma_tf32(d[mt], alo[s][mt], __float_as_uint(bv[s].x),
+                     __float_as_uint(bv[s].y));
+            mma_tf32(d[mt], ahi[s][mt], __float_as_uint(bv[s].z),
+                     __float_as_uint(bv[s].w));
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < KS; ++s)
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt)
+            hi_step(d[mt], ahi[s][mt], bv[s], s == 0);
+      } else {
+        float dl[kMT][4] = {};
+        for (int s = 0; s < A.ks; ++s) {
+          const float4 bv = tile[(nt * A.ks + s) * 32 + lane];
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            uint32_t hi[4], lo[4];
+            a_frag(s, mt, hi, lo);
+            mma_tf32(dl[mt], lo, __float_as_uint(bv.x), __float_as_uint(bv.y));
+            mma_tf32(dl[mt], hi, __float_as_uint(bv.z), __float_as_uint(bv.w));
+            hi_step(d[mt], hi, bv, false);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) d[mt][i] += dl[mt][i];
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+        accumulate<ONLINE>(d[mt], mx[mt], th[mt], sm[mt]);
+    }
+    if constexpr (KS > 0) __syncthreads();  // this buffer is refilled next
   }
+
+  // merge the four threads of each row, then one partial per (split, row)
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float m0 = mx[mt][h], s0 = sm[mt][h];
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        const float m1 = __shfl_xor_sync(kFull, m0, o);
+        const float s1 = __shfl_xor_sync(kFull, s0, o);
+        if (ONLINE) {
+          const float mn = fmaxf(m0, m1);
+          s0 = s0 * ex2(m0 - mn) + s1 * ex2(m1 - mn);
+          m0 = mn;
+        } else {
+          s0 += s1;
+        }
+      }
+      const int row = r[mt][h];
+      if (t == 0 && row < n) {
+        const size_t o = (size_t)blockIdx.y * n + row;
+        A.part_sum[o] = s0;
+        if (ONLINE) A.part_max[o] = m0;
+      }
+    }
+
+  // the last split block of this query block merges the splits
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(&A.arrivals[blockIdx.x], 1) == A.n_split - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (threadIdx.x == 0) A.arrivals[blockIdx.x] = 0;  // for the next pass
+  const int row = blockIdx.x * kRows + threadIdx.x;
+  if (row >= n) return;
+  float m = 0.f;  // STATIC: the max is the a-priori bound, 0 after shift
+  if (ONLINE) {
+    m = -INFINITY;
+    for (int k = 0; k < A.n_split; ++k)
+      m = fmaxf(m, __ldcg(A.part_max + (size_t)k * n + row));
+  }
+  float s = 0.f;
+  for (int k = 0; k < A.n_split; ++k) {
+    const size_t o = (size_t)k * n + row;
+    s += ONLINE ? __ldcg(A.part_sum + o) * ex2(__ldcg(A.part_max + o) - m)
+                : __ldcg(A.part_sum + o);
+  }
+  const float v = (m - kHeadroom + log2f(s)) * kLn2 + max_lw;
+  A.out[row] = v;
+  if (A.flag_out != nullptr && !isfinite(v)) *A.flag_out = 1;
 }
 
 template <bool ONLINE>
-__global__ void mixture_combine_kernel(const float* __restrict__ part_max,
-                                       const float* __restrict__ part_sum,
-                                       const float* __restrict__ max_lw,
-                                       int n, int n_split,
-                                       float* __restrict__ out) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  if (ONLINE) {
-    float mx = kNegInf;
-    for (int k = 0; k < n_split; ++k) mx = fmaxf(mx, part_max[(size_t)k * n + row]);
-    float s = 0.f;
-    for (int k = 0; k < n_split; ++k) {
-      const size_t o = (size_t)k * n + row;
-      s += part_sum[o] * expf(part_max[o] - mx);
-    }
-    out[row] = mx + logf(s) + max_lw[0];
-  } else {
-    float s = 0.f;
-    for (int k = 0; k < n_split; ++k) s += part_sum[(size_t)k * n + row];
-    out[row] = logf(s) + max_lw[0];
-  }
-}
-
-template <int P>
-cudaError_t launch(const float* a, const float* b, const float* lw_shift,
-                   const float* max_lw, float* part_max, float* part_sum,
-                   float* out, int n, int m, int p, int n_split,
-                   int centers_per_split, bool online, cudaStream_t stream) {
-  const dim3 grid((n + kThreads - 1) / kThreads, n_split);
-  if (online) {
-    mixture_partial_kernel<P, true><<<grid, kThreads, 0, stream>>>(
-        a, b, lw_shift, n, m, p, centers_per_split, part_max, part_sum);
-  } else {
-    mixture_partial_kernel<P, false><<<grid, kThreads, 0, stream>>>(
-        a, b, lw_shift, n, m, p, centers_per_split, part_max, part_sum);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int cb = 256;
-  if (online) {
-    mixture_combine_kernel<true><<<(n + cb - 1) / cb, cb, 0, stream>>>(
-        part_max, part_sum, max_lw, n, n_split, out);
-  } else {
-    mixture_combine_kernel<false><<<(n + cb - 1) / cb, cb, 0, stream>>>(
-        part_max, part_sum, max_lw, n, n_split, out);
+cudaError_t launch_partial(dim3 grid, cudaStream_t s, const PartialArgs& A) {
+  switch (A.ks) {
+    case 1: mixture_partial_kernel<1, ONLINE><<<grid, kThreads, 0, s>>>(A);
+      break;
+    case 2: mixture_partial_kernel<2, ONLINE><<<grid, kThreads, 0, s>>>(A);
+      break;
+    case 3: mixture_partial_kernel<3, ONLINE><<<grid, kThreads, 0, s>>>(A);
+      break;
+    case 4: mixture_partial_kernel<4, ONLINE><<<grid, kThreads, 0, s>>>(A);
+      break;
+    default: mixture_partial_kernel<0, ONLINE><<<grid, kThreads, 0, s>>>(A);
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry bound with ctypes. Pointers are device pointers; `stream` is the
-// caller's cudaStream_t. Returns cudaGetLastError() after the launches
-// (0 = success); the kernels run asynchronously on `stream`.
-extern "C" int mixture_logsumexp_f32(const float* a, const float* b,
-                                     const float* lw_shift,
-                                     const float* max_lw, float* part_max,
-                                     float* part_sum, float* out, int n,
-                                     int m, int p, int n_split,
-                                     int centers_per_split, int online,
-                                     void* stream) {
+// C entry bound with ctypes. Pointers are device pointers, `stream` the
+// caller's cudaStream_t; the workspace segments are sized by the wrapper's
+// launch plan (ops/kernels.py::launch_plan): bfrag [n_stages * 64 * ks * 16],
+// lwmax [prologue_blocks], part_max and part_sum [n_split, n], arrivals
+// [q_blocks] and flag [1] (int32). mode: 0 static, 1 online, 2 auto (static
+// pass that flags a non-finite row, then an online pass that runs only if
+// flagged: the TPU wrapper's lax.cond, on the device). Returns the first
+// cudaGetLastError() that is not 0 (0 = success); the kernels run
+// asynchronously on `stream` and nothing waits for them.
+extern "C" int mixture_logsumexp_f32(
+    const float* a, const float* b, const float* log_w, float* bfrag,
+    float* lwmax, float* part_max, float* part_sum, int* arrivals, int* flag,
+    float* out, int n, int m, int p, int ks, int n_stages,
+    int stages_per_split, int n_split, int prologue_blocks, int mode,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool on = online != 0;
-  if (p <= 8)
-    return launch<8>(a, b, lw_shift, max_lw, part_max, part_sum, out, n, m, p,
-                     n_split, centers_per_split, on, s);
-  if (p <= 16)
-    return launch<16>(a, b, lw_shift, max_lw, part_max, part_sum, out, n, m, p,
-                      n_split, centers_per_split, on, s);
-  if (p <= 32)
-    return launch<32>(a, b, lw_shift, max_lw, part_max, part_sum, out, n, m, p,
-                      n_split, centers_per_split, on, s);
-  if (p <= 64)
-    return launch<64>(a, b, lw_shift, max_lw, part_max, part_sum, out, n, m, p,
-                      n_split, centers_per_split, on, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int q_blocks = (n + kRows - 1) / kRows;
+  prologue_kernel<<<prologue_blocks, kPrologueThreads, 0, s>>>(
+      b, log_w, m, p, ks, n_stages * kStageCenters, bfrag, lwmax, arrivals,
+      q_blocks, flag);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(q_blocks, n_split);
+  PartialArgs A{a, reinterpret_cast<const float4*>(bfrag), lwmax,
+                prologue_blocks, n, p, ks, n_stages, stages_per_split,
+                n_split, part_max, part_sum, arrivals, nullptr, nullptr, out};
+  if (mode != 1) {
+    A.flag_out = mode == 2 ? flag : nullptr;
+    err = launch_partial<false>(grid, s, A);
+    if (err != cudaSuccess || mode == 0) return err;
+    A.flag_out = nullptr;
+    A.gate = flag;
+  }
+  return launch_partial<true>(grid, s, A);
 }
-
-// Largest p the templates cover (the wrapper raises above it).
-extern "C" int mixture_logsumexp_max_p(void) { return 64; }

@@ -48,14 +48,14 @@ def find_nvcc() -> str:
     )
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` (if no build of this exact source exists)
-    and return the loaded library."""
+def load_library(name: str, src: str | Path | None = None) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu``, or ``src`` when given (if no build of
+    this exact source exists), and return the loaded library."""
     with _lock:
         lib = _loaded.get(name)
         if lib is not None:
             return lib
-        src = CSRC / f"{name}.cu"
+        src = Path(src) if src is not None else CSRC / f"{name}.cu"
         digest = hashlib.sha256(
             src.read_bytes() + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]

@@ -14,25 +14,29 @@ runs :func:`mixture_logsumexp_reference`. Nothing else chooses between them.
 Semantics kept from the TPU wrapper: a true -inf log-weight is clamped to the
 finite sentinel ``-1e30``; the static max bound ``max_lw`` is the largest
 non-sentinel log-weight (0 if there is none); ``mode`` is "static" (sum of
-``exp(logit - max_lw)``, no running max), "online" (flash-style running
-max, sound for any input) or "auto" (static, then an online rerun of the
-whole call if any row came out non-finite - one host check per call).
+``exp(logit - max_lw)``, no running max: a row whose sum underflows is
+-inf), "online" (running max, sound for any input) or "auto" (static, then
+an online rerun of the whole call if any row came out non-finite). The
+kernel decides the rerun on the device, as the TPU's ``lax.cond`` does: the
+static pass raises a flag, and the online pass is always launched but
+returns at once unless the flag is up. No mode syncs the host.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
+import functools
+from typing import NamedTuple
 
 import torch
 
 NEG_INF = -1e30
 MODES = ("auto", "static", "online")
-#: largest parameter count the kernel's templates cover (csrc: P in
-#: {8, 16, 32, 64}); larger p raises
-MAX_P = 64
-_THREADS = 128             # query rows per block (csrc kThreads)
-_MIN_CENTERS_PER_SPLIT = 64
+_CSRC_MODE = {"static": 0, "online": 1, "auto": 2}
+_ROWS = 128                # query rows per block (csrc kRows)
+_STAGE_CENTERS = 64        # centers per shared-memory stage (csrc)
+_PROLOGUE_THREADS = 256    # centers per prologue block (csrc)
+_BLOCKS_PER_SM = 32        # partial-kernel blocks the split aims for per SM
 _REF_BLOCK = 2048          # centers per block of the plain version
 
 
@@ -40,7 +44,7 @@ def _max_lw(lw):
     """The a-priori logit bound: the largest non-sentinel log-weight, 0 when
     every weight is the sentinel (abcsmc_tpu/ops/pallas_kernels.py:213-215).
     A 0-d tensor; no host sync."""
-    neg = torch.full_like(lw, -math.inf)
+    neg = torch.full_like(lw, -torch.inf)
     mx = torch.where(lw > NEG_INF / 2, lw, neg).amax()
     return torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
 
@@ -87,46 +91,105 @@ def mixture_logsumexp_reference(a, b, log_w, *, mode: str = "auto"):
     return run(True)
 
 
+class LaunchPlan(NamedTuple):
+    """How one call is cut into launches (all host integers).
+
+    ``ks`` k-steps of 8 cover the augmented width p+2; the centers are
+    padded to ``n_stages`` stages of 64, and split ``y`` of the partial
+    kernel's grid ``(q_blocks, n_split)`` takes stages
+    ``[y * stages_per_split, min(n_stages, (y + 1) * stages_per_split))``.
+    ``ws_floats`` is the 4-byte workspace: the b_aug fragments, the
+    prologue's per-block maxima, the per-split partial sums and maxima, the
+    per-query-block arrival counters and the rerun flag (int32), each
+    starting at an offset in ``offsets`` (multiples of 4 words)."""
+    ks: int
+    n_stages: int
+    stages_per_split: int
+    n_split: int
+    q_blocks: int
+    prologue_blocks: int
+    offsets: tuple
+    ws_floats: int
+
+    @property
+    def k_pad(self) -> int:
+        return 8 * self.ks
+
+    def split_centers(self, y: int, m: int) -> range:
+        """The real centers (index < m) of split ``y``."""
+        lo = y * self.stages_per_split * _STAGE_CENTERS
+        hi = (y + 1) * self.stages_per_split * _STAGE_CENTERS
+        return range(min(lo, m), min(hi, m))
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(n: int, m: int, p: int, sms: int, online: bool) -> LaunchPlan:
+    """The launch plan of one call on a card with ``sms`` SMs: enough center
+    splits that the partial kernel has about ``_BLOCKS_PER_SM`` blocks per
+    SM (at keep 2,048 there are only 16 query blocks), no split empty."""
+    ks = -(-(p + 2) // 8)
+    n_stages = -(-m // _STAGE_CENTERS)
+    q_blocks = -(-n // _ROWS)
+    want = -(-_BLOCKS_PER_SM * sms // q_blocks)
+    n_split = max(1, min(want, n_stages))
+    sps = -(-n_stages // n_split)
+    n_split = -(-n_stages // sps)
+    prologue_blocks = -(-n_stages * _STAGE_CENTERS // _PROLOGUE_THREADS)
+    sizes = (n_stages * _STAGE_CENTERS * ks * 16, prologue_blocks,
+             n_split * n, n_split * n if online else 0, q_blocks, 1)
+    offsets, at = [], 0
+    for s in sizes:
+        offsets.append(at)
+        at += -(-s // 4) * 4
+    return LaunchPlan(ks, n_stages, sps, n_split, q_blocks, prologue_blocks,
+                      tuple(offsets), at)
+
+
+@functools.lru_cache(maxsize=None)
 def _library():
     from abcsmc_tpu_torch.ops._build import load_library
 
     fn = load_library("mixture_logsumexp").mixture_logsumexp_f32
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.restype = ci
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+    fn.argtypes = [vp] * 10 + [ci] * 9 + [vp]
     return fn
 
 
-def _launch(a, b, lw_shift, max_lw, online: bool):
-    """One launch of the CUDA kernel pair (partial + combine) on the current
-    stream; every buffer is allocated here with torch.empty."""
-    fn = _library()
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(a, b, log_w, mode: str):
+    """One call of the kernel on the current stream: the prologue, then the
+    static and/or online partial kernel (csrc ``mode`` 0 static, 1 online,
+    2 auto). The workspace is one torch.empty; nothing syncs the host."""
     n, p = a.shape
     m = b.shape[0]
     dev = a.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    q_blocks = -(-n // _THREADS)
-    n_split = max(1, min(-(-4 * sms // q_blocks),
-                         -(-m // _MIN_CENTERS_PER_SPLIT)))
-    cps = -(-m // n_split)
-    n_split = -(-m // cps)
+    online = mode != "static"
+    plan = launch_plan(n, m, p, _sm_count(dev.index), online)
+    ws = torch.empty((plan.ws_floats,), dtype=torch.float32, device=dev)
     out = torch.empty((n,), dtype=torch.float32, device=dev)
-    part_sum = torch.empty((n_split, n), dtype=torch.float32, device=dev)
-    part_max = (
-        torch.empty((n_split, n), dtype=torch.float32, device=dev)
-        if online else part_sum
-    )
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(a.data_ptr(), b.data_ptr(), lw_shift.data_ptr(),
-                 max_lw.data_ptr(), part_max.data_ptr(), part_sum.data_ptr(),
-                 out.data_ptr(), n, m, p, n_split, cps, int(online), stream)
+    base = ws.data_ptr()
+    bfrag, lwmax, psum, pmax, arrivals, flag = (
+        base + 4 * o for o in plan.offsets)
+    args = (a.data_ptr(), b.data_ptr(), log_w.data_ptr(), bfrag, lwmax,
+            pmax if online else psum, psum, arrivals, flag, out.data_ptr(),
+            n, m, p, plan.ks, plan.n_stages, plan.stages_per_split,
+            plan.n_split, plan.prologue_blocks, _CSRC_MODE[mode],
+            torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # the launches go to the current device
+        err = _library()(*args)
     if err != 0:
         raise RuntimeError(
             f"mixture_logsumexp kernel launch failed: cudaError {err} "
-            f"(n={n}, m={m}, p={p}, splits={n_split})"
+            f"(n={n}, m={m}, p={p}, plan={plan[:6]})"
         )
-    mixture_logsumexp.launches += 1
+    # partial-kernel launches; auto's online pass counts though it may
+    # return at once
+    mixture_logsumexp.launches += 2 if mode == "auto" else 1
     return out
 
 
@@ -152,38 +215,30 @@ def _check_cuda_inputs(a, b, log_w):
             f"shape mismatch: a{tuple(a.shape)} b{tuple(b.shape)} "
             f"log_w{tuple(log_w.shape)}"
         )
-    if not 1 <= p <= MAX_P:
-        raise ValueError(
-            f"mixture_logsumexp kernel takes 1 <= p <= {MAX_P}, got p={p}"
-        )
-    if m < 1 or n >= 2**31 or m >= 2**31:
-        raise ValueError(f"unsupported sizes n={n}, m={m}")
+    if p < 1 or m < 1 or n < 1:
+        raise ValueError(f"empty input: n={n}, m={m}, p={p}")
+    if n >= 2**31 or m * (p + 2) >= 2**31:
+        raise ValueError(f"unsupported sizes n={n}, m={m}, p={p}")
 
 
 def mixture_logsumexp(a, b, log_w, *, mode: str = "auto"):
     """out[i] = logsumexp_j(log_w[j] - |a_i - b_j|^2 / 2), [n].
 
     a: [n, p] scaled queries; b: [m, p] scaled centers; log_w: [m]. CUDA
-    tensors (float32, contiguous, 1 <= p <= 64) launch the hand-written
-    kernel; CPU tensors run :func:`mixture_logsumexp_reference`. The TPU
-    wrapper's dot ``precision`` schemes (the config's ``weight_precision``)
-    have no counterpart here: every value runs this exact FP32 path."""
+    tensors (float32, contiguous, any p >= 1) launch the hand-written
+    kernel, which forms the logits in 3xTF32 on tensor cores (the TPU's
+    precision "high"); every value of the config's ``weight_precision``
+    runs that path. CPU tensors run :func:`mixture_logsumexp_reference`.
+    On CUDA no mode syncs the host."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if not a.is_cuda:
         return mixture_logsumexp_reference(a, b, log_w, mode=mode)
     _check_cuda_inputs(a, b, log_w)
-    lw = torch.clamp_min(log_w, NEG_INF)
-    max_lw = _max_lw(lw).reshape(1)
-    lw_shift = (lw - max_lw).contiguous()
-    if mode == "online":
-        return _launch(a, b, lw_shift, max_lw, online=True)
-    out = _launch(a, b, lw_shift, max_lw, online=False)
-    if mode == "static" or bool(torch.isfinite(out).all()):
-        return out
-    return _launch(a, b, lw_shift, max_lw, online=True)
+    return _launch(a, b, log_w, mode)
 
 
-#: kernel launches issued by :func:`mixture_logsumexp` (a plain integer;
-#: callers reset it to 0 to count the launches of one run)
+#: partial-kernel launches issued by :func:`mixture_logsumexp`: 1 per
+#: static or online call, 2 per auto call (a plain integer; callers reset
+#: it to 0 to count the launches of one main-path pass)
 mixture_logsumexp.launches = 0

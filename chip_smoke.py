@@ -7,9 +7,13 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
 
 1. build   - compile csrc/mixture_logsumexp.cu with nvcc (sm_90a), timed;
 2. kernel  - the kernel against its plain PyTorch version on the card, f32,
-             at 2,048 x 2,048 x 16 and 50,000 x 50,000 x 6 in the static,
-             online and auto modes, plus the underflow case and true -inf
-             weights; max abs diff <= 2e-4 nats; both versions timed;
+             at 2,048 x 2,048 x 16 and 50,000 x 50,000 x 6 (the main path's
+             shapes, both timed), 4,096^2 x 80, 2,048^2 x 1 and a ragged
+             37 x 1,000 x 1, in the static, online and auto modes; a hostile
+             20,000^2 x 16 case (coordinates up to 6 kernel sd) against the
+             plain version in float64; the underflow case; true -inf
+             weights; one auto call under torch.cuda.set_sync_debug_mode
+             ("error"); max abs diff <= 2e-4 nats;
 3. dengue  - examples/dengue_surrogate.json through
              AbcSmc(cfg, device="cuda").run_device(): 5 complete SQLite sets
              of 2,048 ranked rows, ncomp_used > 1 in each, >= 4 kernel
@@ -37,6 +41,14 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 TOL = 2e-4          # nats; the bound of tests/test_pallas_kernels.py
 KERNEL_SHAPES = ((2048, 2048, 16), (50_000, 50_000, 6))
+EXTRA_SHAPES = ((4096, 4096, 80), (2048, 2048, 1), (37, 1000, 1))
+# Peak rates of one H100 SXM at its 700 W limit: the special-function unit
+# issues 16 ex2 per SM per clock (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0), TF32 tensor cores 495
+# TFLOP/s dense and HBM 3.35 TB/s (NVIDIA H100 data sheet).
+SFU_PER_SM_CLOCK = 16
+TF32_FLOPS = 495e12
+HBM_BYTES = 3.35e12
 
 
 def emit(obj):
@@ -87,6 +99,31 @@ def kernel_inputs(n, m, p, seed):
     return a.contiguous(), b.contiguous(), lw
 
 
+def kernel_bound_ms(n, m, p):
+    """The least time the card could take for one call at n x m x p: the
+    larger of its operations over their peak rate (one ex2 per logit on the
+    special-function units at the card's maximum SM clock; the 3xTF32 dot,
+    3 x 2 (p+2) flops per logit, on the tensor cores) and its bytes (each
+    input read once, the output written once) over the HBM rate."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    terms = {
+        "ex2": 1e3 * n * m / (sms * SFU_PER_SM_CLOCK * mhz * 1e6),
+        "tf32_dot": 1e3 * 3 * 2 * (p + 2) * n * m / TF32_FLOPS,
+        "bytes": 1e3 * 4 * (n * p + m * p + m + n) / HBM_BYTES,
+    }
+    worst = max(terms, key=terms.get)
+    return {"bound_ms": terms[worst], "terms_ms": terms,
+            "bound_by": "bytes" if worst == "bytes" else "operations",
+            "sm_clock_mhz": mhz, "sms": sms}
+
+
 def phase_kernel():
     import torch
 
@@ -116,6 +153,48 @@ def phase_kernel():
                 lambda: mixture_logsumexp_reference(a, b, lw, mode=mode),
                 reps)
         del a, b, lw
+
+    # any p (the templates of the first port stopped at 64), tiny and ragged
+    for n, m, p in EXTRA_SHAPES:
+        a, b, lw = kernel_inputs(n, m, p, seed=n + m + p)
+        for mode in ("static", "online", "auto"):
+            got = mixture_logsumexp(a, b, lw, mode=mode)
+            torch.cuda.synchronize()
+            ref = mixture_logsumexp_reference(a, b, lw, mode=mode)
+            err = float((got - ref).abs().max())
+            errs[f"{n}x{m}x{p}/{mode}"] = err
+            check(err <= TOL, f"{mode} at {n}x{m}x{p}: max abs err {err}")
+
+    # hostile: coordinates up to 6 kernel sd, where the expansion
+    # a.b - |a|^2/2 - |b|^2/2 cancels most; each query within ~1 sd of its
+    # parent center, as in an SMC state; held to float64
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    n = m = 20_000
+    p = 16
+    bh = rng.uniform(-6, 6, (m, p))
+    ah = bh[rng.integers(0, m, n)] + rng.normal(size=(n, p))
+    wh = rng.uniform(0.5, 1.5, m)
+    h32 = [torch.as_tensor(x, dtype=torch.float32, device="cuda")
+           for x in (ah, bh, np.log(wh / wh.sum()))]
+    ref64 = mixture_logsumexp_reference(*(x.double() for x in h32),
+                                        mode="online")
+    for mode in ("static", "online", "auto"):
+        got = mixture_logsumexp(*h32, mode=mode)
+        err = float((got.double() - ref64).abs().max())
+        errs[f"hostile_{n}x{m}x{p}_f64/{mode}"] = err
+        check(err <= TOL, f"hostile {mode}: max abs err vs f64 {err}")
+
+    # auto decides its rerun on the device: no host sync in the call
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mixture_logsumexp(*h32, mode="auto")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    del h32, ref64
 
     # underflow: the far query's static exp-sum is 0; auto == online
     dev = torch.device("cuda")
@@ -273,7 +352,9 @@ def main() -> int:
 
     errs, times = phase_kernel()
     launches = phase_dengue() + phase_north()
-    big = "x".join(str(v) for v in KERNEL_SHAPES[-1])
+    n, m, p = KERNEL_SHAPES[-1]
+    big = f"{n}x{m}x{p}"
+    bound = kernel_bound_ms(n, m, p)
     emit({"kernels": [{
         "name": "mixture_logsumexp",
         "route": "cuda",
@@ -283,6 +364,14 @@ def main() -> int:
         "max_abs_err": max(v for k, v in errs.items() if "rel" not in k),
         "ms": times[big]["ms"],
         "plain_ms": times[big]["plain_ms"],
+        "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"],
+        "bound_share": bound["bound_ms"] / times[big]["ms"],
+        "library_ms": None,
+        "shape": [n, m, p],
+        "ms_static": times[big]["ms_static"],
+        "ms_online": times[big]["ms_online"],
+        "bound_terms_ms": bound["terms_ms"],
     }]})
     emit({"ok": True, "device": {
         "platform": "gpu",

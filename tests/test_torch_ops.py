@@ -302,11 +302,55 @@ def test_cuda_input_checks_reject(case, err):
     elif case == "contig":
         b = torch.zeros((4, 6)).T
     elif case == "p":
-        a, b = torch.zeros((8, 65)), torch.zeros((6, 65))
+        a, b = torch.zeros((8, 0)), torch.zeros((6, 0))
     else:
         lw = torch.zeros(5)
     with pytest.raises(err):
         kernels._check_cuda_inputs(a, b, lw)
+
+
+@pytest.mark.parametrize("n,m,p,sms", [
+    (50_000, 50_000, 6, 132), (2048, 2048, 16, 132), (37, 1000, 1, 132),
+    (1, 100_000, 8, 132), (4096, 4096, 80, 132), (129, 70, 30, 7),
+    (100_000, 65, 31, 132), (5, 1, 200, 1),
+])
+def test_launch_plan_covers_every_center_once(n, m, p, sms):
+    """The host half of the kernel launch: each center lies in exactly one
+    split, no split is empty, K = p+2 is padded to a multiple of 8 by less
+    than 8, and the workspace segments (b_aug fragments, prologue maxima,
+    partial sums and maxima, arrival counters, flag) are 16-byte aligned
+    and disjoint."""
+    for online in (False, True):
+        plan = kernels.launch_plan(n, m, p, sms, online)
+        assert plan.k_pad % 8 == 0 and 0 <= plan.k_pad - (p + 2) < 8
+        assert plan.q_blocks * kernels._ROWS >= n
+        assert plan.n_stages * kernels._STAGE_CENTERS >= m
+        seen = np.zeros(m, np.int64)
+        for y in range(plan.n_split):
+            r = plan.split_centers(y, m)
+            assert len(r) > 0
+            seen[r.start:r.stop] += 1
+        assert (seen == 1).all()
+        assert plan.n_split * plan.stages_per_split >= plan.n_stages
+        assert plan.prologue_blocks * kernels._PROLOGUE_THREADS >= (
+            plan.n_stages * kernels._STAGE_CENTERS)
+        sizes = (plan.n_stages * kernels._STAGE_CENTERS * plan.ks * 16,
+                 plan.prologue_blocks, plan.n_split * n,
+                 plan.n_split * n if online else 0, plan.q_blocks, 1)
+        ends = [o + s for o, s in zip(plan.offsets, sizes)]
+        assert all(o % 4 == 0 for o in plan.offsets)
+        assert all(e <= o for e, o in zip(ends, plan.offsets[1:]))
+        assert ends[-1] <= plan.ws_floats
+
+
+def test_launch_plan_fills_the_card():
+    """The center axis is split until the partial kernel has about
+    _BLOCKS_PER_SM blocks per SM, or every split is one 64-center stage."""
+    small = kernels.launch_plan(2048, 2048, 16, 132, False)
+    assert small.stages_per_split == 1 and small.n_split == 32
+    big = kernels.launch_plan(50_000, 50_000, 6, 132, False)
+    assert big.q_blocks * big.n_split >= kernels._BLOCKS_PER_SM * 132
+    assert big.q_blocks * (big.n_split - 1) < kernels._BLOCKS_PER_SM * 132
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
