@@ -1,17 +1,26 @@
 """The SMC orchestrator (port of :class:`abcsmc_tpu.engine.AbcSmc`).
 
-Ported: construction from a config, :meth:`AbcSmc.run_device` on a fresh
-store (the per-set sequential loop, one generation step per set on one
-device), the mirror of every set into the run store (SQLite or in-memory,
-the same job/par/upar/met schema), the filtering and convergence reports,
-and the posterior surfaces.
+Two ways to run, as in the JAX package:
 
-Not yet ported, each raising ``NotImplementedError`` where it is reached:
-the host loop (``run``, ``build_database``, ``process_database``,
-``simulate_next_particles``), resume from an existing store, projection,
-the fused ``run_scan``/``run_chain`` dispatch, chunked row passes, Box-Cox,
-split propose, two-stage top-K, MULTIVARIATE noise, and the simulators
-other than ``linear_gaussian`` and ``gaussian``.
+- the host engine (src/AbcSmc.cpp:452-1066): :meth:`AbcSmc.build_database`,
+  :meth:`AbcSmc.process_database` (the brain: read complete sets, rank,
+  weigh, propose and enqueue the next set) and
+  :meth:`AbcSmc.simulate_next_particles` (claim-and-run workers) over the
+  run store as a job queue, and :meth:`AbcSmc.run`, the ``--all`` loop. The
+  brain computes on ``self.device`` in ``self.dtype`` (the weights through
+  the hand-written kernel on a CUDA engine); simulation runs through the
+  config's simulator;
+- :meth:`AbcSmc.run_device`: one generation step per set on the device,
+  each set mirrored into the store afterwards. It resumes from an existing
+  store (at a set boundary or mid-set) and hands a host-only simulator to
+  :meth:`AbcSmc.run`.
+
+One process: the JAX package's multi-process gating (``_store_writer``,
+``_mesh_sync``, ``_writer_guard``, ``_broadcast_flag``) collapses to the
+single-process case. Not yet ported, each raising ``NotImplementedError``
+where it is reached: projection, POSTERIOR/PSEUDO parameters, the fused
+``run_scan``/``run_chain`` dispatch and, inside the device step, chunked
+row passes, Box-Cox, split propose, two-stage top-K and MULTIVARIATE noise.
 """
 
 from __future__ import annotations
@@ -24,13 +33,16 @@ import numpy as np
 import torch
 
 from abcsmc_tpu_torch import reports
-from abcsmc_tpu_torch.config import NoiseType, SmcConfig, parse_config
-from abcsmc_tpu_torch.errors import AbcError
+from abcsmc_tpu_torch.config import FilterType, NoiseType, SmcConfig, parse_config
+from abcsmc_tpu_torch.errors import AbcError, SimulatorError, StorageError
 from abcsmc_tpu_torch.models.metrics import Metric, observed_vector
 from abcsmc_tpu_torch.models.parameters import ParameterSet
-from abcsmc_tpu_torch.models.simulators import DeviceSimulator, resolve_simulator
+from abcsmc_tpu_torch.models.simulators import (
+    DeviceSimulator, Simulator, resolve_simulator,
+)
 from abcsmc_tpu_torch.models.transforms import ParameterTransform
-from abcsmc_tpu_torch.ops import stats
+from abcsmc_tpu_torch.ops import ranking, resample, stats, weights
+from abcsmc_tpu_torch.parallel.generation import _SEED_HIGH, Generation
 from abcsmc_tpu_torch.storage import MemoryStorage, SQLiteStorage, Storage
 
 
@@ -39,6 +51,11 @@ def _not_ported(what: str):
         f"{what} is not yet ported to abcsmc_tpu_torch; use the JAX package "
         "abcsmc_tpu for it"
     )
+
+
+def _host(x) -> np.ndarray:
+    """A tensor as a float64 numpy array on the host (syncs the device)."""
+    return x.detach().to("cpu", torch.float64).numpy()
 
 
 class AbcSmc:
@@ -52,10 +69,11 @@ class AbcSmc:
     device:
         "cuda" (default; raises when no CUDA device is visible) or "cpu".
     dtype:
-        Working float type of the device path (default float32).
+        Working float type of the brain and the device path (default
+        float32). The store keeps float64.
     simulator:
-        Optional explicit :class:`DeviceSimulator`; otherwise bound from
-        the config's ``simulator`` key.
+        Optional explicit simulator; otherwise bound from the config
+        (builtin name, shared object, executable).
     storage:
         Optional run store; defaults to SQLite at
         ``config.database_filename``, or in-memory when no filename is set.
@@ -67,7 +85,7 @@ class AbcSmc:
         *,
         device="cuda",
         dtype=torch.float32,
-        simulator: DeviceSimulator | None = None,
+        simulator: Simulator | None = None,
         storage: Storage | None = None,
     ):
         from abcsmc_tpu_torch import resolve_device
@@ -98,9 +116,11 @@ class AbcSmc:
                 "config": json.dumps(config.raw) if config.raw else "",
             }
 
-        #: per-run stage timings: one "device_generation" entry per set and
-        #: one "run_device_phases" entry per run
+        #: per-call stage timings: "process" / "rank" / "simulate" entries
+        #: from the host engine, one "device_generation" entry per set and
+        #: one "run_device_phases" entry per run from the device path
         self.timings: list[dict] = []
+        self._stopped_early = False
         self._particle_parameters: list[np.ndarray] = []
         self._particle_metrics: list[np.ndarray] = []
         self._predictive_prior: list[np.ndarray] = []
@@ -115,20 +135,301 @@ class AbcSmc:
     def nmet(self) -> int:
         return self.config.nmet
 
-    # ------------------------------------------------ not yet ported: host
-    def build_database(self, *args, **kwargs):
-        raise _not_ported("the host engine (build_database)")
-
-    def process_database(self, *args, **kwargs):
-        raise _not_ported("the host engine (process_database)")
-
-    def simulate_next_particles(self, *args, **kwargs):
-        raise _not_ported("the host engine (simulate_next_particles)")
-
-    def run(self, *args, **kwargs):
-        raise _not_ported("the host engine loop (run)")
-
     # ------------------------------------------------------------ helpers
+    def _generator(self, seed: int) -> torch.Generator:
+        """The brain's generator for one pass, on the engine's device, seeded
+        as the JAX brain's key (``seed & 0xFFFFFFFF``)."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed) & 0xFFFFFFFF)
+        return gen
+
+    def _tensor(self, x) -> torch.Tensor:
+        """Host rows as a contiguous ``self.dtype`` tensor on the device."""
+        return torch.as_tensor(np.asarray(x)).to(
+            self.device, self.dtype).contiguous()
+
+    def _draw_seeds(self, generator: torch.Generator, n: int) -> np.ndarray:
+        """Per-particle stored RNG seeds in [0, 2^31 - 1)
+        (src/AbcSmc.cpp:535-537)."""
+        return torch.randint(0, _SEED_HIGH, (n,), generator=generator,
+                             device=self.device).cpu().numpy().astype(
+                                 np.uint64)
+
+    def _reset_state(self):
+        for lst in (self._particle_parameters, self._particle_metrics,
+                    self._weights, self._predictive_prior,
+                    self._doubled_variance):
+            lst.clear()
+
+    # ------------------------------------------------------ build (set 0)
+    def build_database(self, seed: int = 0, verbose: bool = False) -> bool:
+        """Create the store and enqueue set 0 unless it holds rows
+        (src/AbcSmc.cpp:810-874). Returns True if it enqueued set 0.
+
+        An existing store with no rows (a crash between table creation and
+        the first insert) is repaired by enqueueing set 0 into its tables,
+        after checking that their columns match the config."""
+        repairing = False
+        if self.storage.exists():
+            if not self.storage.is_empty():
+                return False
+            repairing = True
+            want_par = list(self.par_set.short_names())
+            want_met = [m.short_name for m in self.metrics]
+            have_par = list(getattr(self.storage, "par_names", want_par))
+            have_met = list(getattr(self.storage, "met_names", want_met))
+            if have_par != want_par or have_met != want_met:
+                raise StorageError(
+                    "existing (empty) database schema does not match the "
+                    f"configuration: par columns {have_par} vs config "
+                    f"{want_par}; met columns {have_met} vs config "
+                    f"{want_met}",
+                    code=1,
+                )
+        else:
+            self.storage.create(
+                self.par_set.short_names(),
+                [m.short_name for m in self.metrics],
+                self.transform.has_any,
+            )
+        gen = self._generator(seed)
+        n = self.config.smc_size_at(0)
+        samples = self.par_set.sample_priors(gen, n, self.dtype)
+        seeds = self._draw_seeds(gen, n)
+        upars = (_host(self.transform.to_model_space(samples))
+                 if self.transform.has_any else None)
+        serials = self.storage.insert_generation(
+            0, _host(samples), seeds, upars, None, if_empty=repairing
+        )
+        # None: another worker repaired the store between the emptiness
+        # check and the insert; read it like any other store
+        return serials is not None
+
+    # ------------------------------------------------------------ process
+    def process_database(self, seed: int = 0, verbose: bool = False) -> bool:
+        """The SMC brain (src/AbcSmc.cpp:452-559): build if absent;
+        otherwise read the complete sets, rank any unranked set, weigh,
+        report, and enqueue the next set if more are needed. Returns False
+        when a set is not complete yet."""
+        self._stopped_early = False
+        if self.build_database(seed, verbose):
+            return True
+        self._reset_state()
+
+        t0 = time.perf_counter()
+        gens, rank_s, weight_s = self._read_smc_sets()
+        t_read = time.perf_counter() - t0
+        if gens is None:
+            return False
+        next_set = len(gens)
+        last_set = next_set - 1
+
+        reports.report_convergence_data(self, last_set)
+        sys.stderr.write("\n\n")
+
+        t0 = time.perf_counter()
+        t_enqueue = 0.0
+        more = self.config.num_smc_sets > next_set
+        self._stopped_early = more and self._converged()
+        if more and not self._stopped_early:
+            gen = self._generator(seed)
+            n = self.config.smc_size_at(next_set)
+            surv = self._predictive_prior[last_set]
+            prev_params = self._tensor(self._particle_parameters[last_set][surv])
+            prev_w = self._tensor(self._weights[last_set])
+            method = self.config.resample_method
+            if self.config.noise == NoiseType.MULTIVARIATE:
+                L = resample.setup_mvn_sampler(prev_params)
+                noised = resample.sample_mvn_predictive_priors(
+                    gen, n, prev_w, prev_params, self.par_set, L,
+                    self.config.max_retries, method,
+                )
+            else:
+                noised = resample.sample_predictive_priors(
+                    gen, n, prev_w, prev_params, self.par_set,
+                    self._tensor(self._doubled_variance[last_set]),
+                    self.config.max_retries, method,
+                )
+            if verbose:
+                sys.stderr.write(
+                    f"Populating next set using {self.config.noise.name} "
+                    "noising of parameters.\n"
+                )
+            params = _host(noised)
+            seeds = self._draw_seeds(gen, n)
+            upars = (_host(self.transform.to_model_space(noised))
+                     if self.transform.has_any else None)
+            t1 = time.perf_counter()
+            self.storage.insert_generation(next_set, params, seeds, upars)
+            t_enqueue = time.perf_counter() - t1
+        elif not more:
+            sys.stderr.write(
+                f"Database already contains {self.config.num_smc_sets} "
+                "complete sets.\n"
+            )
+        self.timings.append({
+            "op": "process", "sets": next_set,
+            "read_rank_weight_s": round(t_read, 4),
+            "rank_s": round(rank_s, 4),
+            "weight_s": round(weight_s, 4),
+            "propose_s": round(time.perf_counter() - t0 - t_enqueue, 4),
+            "enqueue_s": round(t_enqueue, 4),
+        })
+        return True
+
+    def _read_smc_sets(self):
+        """read_SMC_sets_from_database (src/AbcSmc.cpp:562-679): every set
+        must be complete and of the configured size. Returns (the sets, or
+        None when one is incomplete; rank seconds; weight seconds)."""
+        if self.config.projection_mode:
+            raise _not_ported("projection mode")
+        gens = self.storage.read_generations()
+        rank_s = weight_s = 0.0
+        for gen in gens:
+            t = gen.set_num
+            if not gen.complete:
+                sys.stderr.write(
+                    "ERROR: Failed to read SMC set from database because not "
+                    f"all particles are complete in set {t}\n"
+                )
+                return None, rank_s, weight_s
+            if gen.size != self.config.smc_size_at(t):
+                raise StorageError(
+                    f"Set {t} in configuration file has size "
+                    f"{self.config.smc_size_at(t)} vs size {gen.size} in "
+                    "database.",
+                    code=1,
+                )
+            self._particle_parameters.append(gen.params)
+            self._particle_metrics.append(gen.metrics)
+            dt_rank, dt_weight = self._ingest_complete_set(gen, t)
+            rank_s += dt_rank
+            weight_s += dt_weight
+        return gens, rank_s, weight_s
+
+    def _ingest_complete_set(self, gen, t: int):
+        """Survivors (ranked and written back if the set is unranked) and
+        weights of one complete set; its params and metrics are already
+        appended. Returns (rank seconds, weight seconds)."""
+        dt_rank = 0.0
+        if gen.has_posterior:
+            self._predictive_prior.append(gen.predictive_prior_indices())
+        else:
+            t0 = time.perf_counter()
+            order, ncomp = self._rank_particles(gen.metrics, gen.params)
+            keep = self.config.pred_prior_size_at(t)
+            surv = order[:keep]
+            dt_rank = time.perf_counter() - t0
+            self.timings.append({"op": "rank", "set": t, "ncomp_used": ncomp,
+                                 "rank_s": round(dt_rank, 4)})
+            self._predictive_prior.append(surv)
+            self.storage.write_posterior_ranks(gen.serials[surv],
+                                               np.arange(keep))
+            reports.filtering_report(self, t, gen.params[surv],
+                                     gen.metrics[surv])
+        t0 = time.perf_counter()
+        self._calculate_predictive_prior_weights(t)
+        return dt_rank, time.perf_counter() - t0
+
+    def _rank_particles(self, mets, pars):
+        """(full ascending order as numpy, PLS components used; 0 for
+        SIMPLE), computed on the engine's device."""
+        if self.config.filter == FilterType.PLS:
+            order, _, ncomp = ranking.ranking_pls(
+                self._tensor(mets), self._tensor(pars), self._tensor(self.obs),
+                self.config.pls_training_fraction,
+                box_cox=self.config.box_cox,
+                optimal_method=self.config.pls_optimal_method,
+            )
+        else:
+            order, _ = ranking.ranking_simple(self._tensor(mets),
+                                              self._tensor(self.obs))
+            ncomp = 0
+        return order.cpu().numpy(), ncomp
+
+    def _calculate_predictive_prior_weights(self, set_num: int):
+        """src/AbcSmc.cpp:1041-1066, on the engine's device: set 0 is
+        uniform, later sets go through the kernel-mixture weights."""
+        assert len(self._doubled_variance) == set_num
+        surv = self._predictive_prior[set_num]
+        pars = self._tensor(self._particle_parameters[set_num][surv])
+        self._doubled_variance.append(_host(stats.doubled_variance(pars)))
+        if set_num == 0:
+            w = weights.uniform_weights(len(surv), device=self.device,
+                                        dtype=self.dtype)
+        else:
+            prev_surv = self._predictive_prior[set_num - 1]
+            w = weights.weight_predictive_prior(
+                pars,
+                self._tensor(self._particle_parameters[set_num - 1][prev_surv]),
+                self._tensor(self._weights[set_num - 1]),
+                self._tensor(self._doubled_variance[set_num - 1]),
+                self.par_set.prior_log_pdf,
+            )
+        self._weights.append(_host(w))
+
+    # ----------------------------------------------------------- simulate
+    def simulate_next_particles(self, n: int = 1, serial_req: int = -1,
+                                posterior_req: int = -1) -> bool:
+        """Claim-and-run workers (src/AbcSmc.cpp:967-1039): claim up to n
+        queued or stuck-running jobs (-1 = all), run the simulator (a device
+        simulator on the engine's device and dtype), write the metrics back
+        guarded by job status."""
+        assert n == 1 or (serial_req == -1 and posterior_req == -1)
+        assert serial_req == -1 or posterior_req == -1
+        if self.simulator is None:
+            raise SimulatorError(
+                "simulator not set (no executable/shared/builtin binding)",
+                code=-211,
+            )
+        t0 = time.perf_counter()
+        claimed = self.storage.claim_jobs(n, serial_req, posterior_req)
+        t_claim = time.perf_counter() - t0
+        if claimed.serials.size == 0:
+            return True
+        start = time.time()
+        t0 = time.perf_counter()
+        mets = self.simulator.run_batch(
+            claimed.params, claimed.seeds, claimed.serials,
+            device=self.device, dtype=self.dtype,
+        )
+        t_sim = time.perf_counter() - t0
+        if mets.shape[1] != self.nmet:
+            raise SimulatorError(
+                "simulator function returned the wrong number of metrics: "
+                f"expected {self.nmet}, received {mets.shape[1]}",
+                code=-211,
+            )
+        if not np.isfinite(mets).all():
+            # non-finite metric bandaid (src/AbcMPI.cpp:81-94): the row's
+            # metrics become DBL_MIN
+            bad = ~np.isfinite(mets).all(axis=1)
+            sys.stderr.write(
+                f"WARNING: {int(bad.sum())} particle(s) returned non-finite "
+                "metrics; overwriting with DBL_MIN\n"
+            )
+            mets = np.array(mets)
+            mets[bad] = np.finfo(np.float64).tiny
+        nrun = len(claimed.serials)
+        t0 = time.perf_counter()
+        self.storage.write_results(
+            claimed.serials, mets, np.full(nrun, int(start)),
+            np.full(nrun, t_sim / max(nrun, 1)),
+        )
+        self.timings.append({
+            "op": "simulate", "n": nrun, "claim_s": round(t_claim, 4),
+            "sim_s": round(t_sim, 4),
+            "writeback_s": round(time.perf_counter() - t0, 4),
+        })
+        return True
+
+    def simulate_particle_by_serial(self, serial_req: int) -> bool:
+        return self.simulate_next_particles(1, serial_req, -1)
+
+    def simulate_particle_by_posterior_idx(self, posterior_req: int) -> bool:
+        return self.simulate_next_particles(1, -1, posterior_req)
+
+    # ---------------------------------------------------------- full loop
     def _nrmse_converged(self, survivor_metrics, set_num: int) -> bool:
         """Early-stopping rule: NRMSE of the posterior metric means vs
         observed below ``config.nrmse_tolerance`` (0 = off)."""
@@ -146,16 +447,35 @@ class AbcSmc:
             return True
         return False
 
+    def _converged(self) -> bool:
+        if not self.config.nrmse_tolerance or not self._predictive_prior:
+            return False
+        t = len(self._predictive_prior) - 1
+        surv = self._predictive_prior[t]
+        return self._nrmse_converged(self._particle_metrics[t][surv], t)
+
+    def run(self, seed: int = 0, verbose: bool = False):
+        """The --all loop (examples/include/examples.h:57-94): per set,
+        process then simulate the whole set; one final process pass reads
+        the last posterior. Stops early at ``config.nrmse_tolerance``."""
+        for t in range(self.config.num_smc_sets):
+            self.process_database(seed + t, verbose)
+            if self._stopped_early:
+                return self
+            self.simulate_next_particles(n=-1)
+        self.process_database(seed + self.config.num_smc_sets, verbose)
+        return self
+
+    # --------------------------------------------------------- device path
     def _check_slice(self):
         cfg = self.config
-        if not isinstance(self.simulator, DeviceSimulator):
-            raise _not_ported("a run without a device simulator (host loop)")
         if cfg.projection_mode:
             raise _not_ported("projection mode")
         if cfg.box_cox:
-            raise _not_ported("Box-Cox ranking (box_cox)")
+            raise _not_ported("Box-Cox ranking inside the device step "
+                              "(box_cox)")
         if cfg.noise == NoiseType.MULTIVARIATE:
-            raise _not_ported("MULTIVARIATE noise")
+            raise _not_ported("MULTIVARIATE noise inside the device step")
         if cfg.row_block:
             raise _not_ported("chunked row passes (row_block)")
         if cfg.propose_split:
@@ -164,24 +484,75 @@ class AbcSmc:
             raise _not_ported("two-stage top-K (topk_two_stage)")
         if cfg.device_dispatch == "fused":
             raise _not_ported("fused dispatch (run_scan / run_chain)")
-        if self.storage.exists() and not self.storage.is_empty():
-            raise _not_ported("resume from an existing store")
 
-    # --------------------------------------------------------- device path
-    def run_device(self, seed: int = 0):
-        """A fresh SMC run on ``self.device``: one generation step per set
+    def _resume_point(self, seed: int, verbose: bool):
+        """Rebuild the state of the sets the store already holds
+        (src/AbcSmc.cpp:452-479, completeness gating at :571-592). Returns
+        ("done", None), ("host", None) when more than one set is incomplete,
+        or ("device", pending): the set the device loop starts from, None
+        for a fresh store."""
+        cfg = self.config
+        if not self.storage.exists():
+            return "device", None
+        gens = self.storage.read_generations()
+        for g in gens:
+            if g.size != cfg.smc_size_at(g.set_num):
+                raise StorageError(
+                    f"Set {g.set_num} in configuration file has size "
+                    f"{cfg.smc_size_at(g.set_num)} vs size {g.size} in "
+                    "database.",
+                    code=1,
+                )
+        n_complete = 0
+        while n_complete < len(gens) and gens[n_complete].complete:
+            n_complete += 1
+        if len(gens) - n_complete > 1:
+            # not a state this engine produces: the host path reports it
+            return "host", None
+        if n_complete == len(gens):
+            # at a set boundary: the brain ingests, reports, honours the
+            # early stop and enqueues the next set (or finds the run done)
+            self.process_database(seed, verbose)
+            if self._stopped_early:
+                return "done", None
+            gens = self.storage.read_generations()
+            if gens[-1].complete:
+                return "done", None
+        else:
+            for t, g in enumerate(gens[:n_complete]):
+                self._particle_parameters.append(g.params)
+                self._particle_metrics.append(g.metrics)
+                self._ingest_complete_set(g, t)
+        return "device", gens[-1]
+
+    def run_device(self, seed: int = 0, verbose: bool = False):
+        """SMC on ``self.device``: one generation step per set
         (:class:`abcsmc_tpu_torch.parallel.generation.Generation`), every
-        draw from one ``torch.Generator`` seeded with ``seed``. All sets stay
-        on the device until the end; then each set is fetched once and
-        mirrored into the run store, and the reports are printed."""
-        from abcsmc_tpu_torch.parallel.generation import Generation
+        draw from one ``torch.Generator`` seeded with ``seed``. The sets stay
+        on the device until the end; then each is fetched once and mirrored
+        into the run store, and the reports are printed.
 
+        An existing store resumes where it stopped. At a set boundary the
+        brain (:meth:`process_database`) enqueues the next set first;
+        mid-set, the rows already 'D' keep their stored metrics and only the
+        others are simulated, on the device, from their stored seeds. A
+        host-only simulator runs the host engine (:meth:`run`) instead."""
+        if not isinstance(self.simulator, DeviceSimulator):
+            if verbose:
+                sys.stderr.write(
+                    "run_device: configuration not device-runnable, "
+                    "falling back to host engine\n"
+                )
+            return self.run(seed, verbose)
         self._check_slice()
         cfg = self.config
-        for lst in (self._particle_parameters, self._particle_metrics,
-                    self._weights, self._predictive_prior,
-                    self._doubled_variance):
-            lst.clear()
+        self._reset_state()
+        kind, pending = self._resume_point(seed, verbose)
+        if kind == "done":
+            return self
+        if kind == "host":
+            return self.run(seed, verbose)
+        t_first = 0 if pending is None else pending.set_num
         gen = Generation(
             self.par_set, self.transform, self.simulator, self.obs,
             device=self.device, dtype=self.dtype,
@@ -195,10 +566,35 @@ class AbcSmc:
         on_cuda = self.device.type == "cuda"
 
         t_dispatch0 = time.perf_counter()
-        params, seeds = gen.init_population(generator, cfg.smc_size_at(0))
+        pending_mets = pending_serials = None
+        if pending is None:
+            params, seeds = gen.init_population(generator, cfg.smc_size_at(0))
+        else:
+            params = self._tensor(pending.params)
+            seeds = torch.as_tensor(
+                pending.seeds.astype(np.int64)).to(self.device)
+            pending_serials = pending.serials
+            if np.any(pending.statuses == "D"):
+                todo = np.nonzero(pending.statuses != "D")[0]
+                merged = np.array(pending.metrics, np.float64)
+                if todo.size:
+                    idx = torch.as_tensor(todo, device=self.device)
+                    upars = self.transform.to_model_space(params).to(
+                        self.dtype)
+                    merged[todo] = _host(self.simulator.batch_fn(
+                        upars[idx], seeds[idx]))
+                pending_mets = self._tensor(merged)
         state = None
+        if t_first > 0:
+            surv = self._predictive_prior[t_first - 1]
+            state = (
+                self._tensor(self._particle_parameters[t_first - 1][surv]),
+                self._tensor(self._weights[t_first - 1]),
+                self._tensor(self._doubled_variance[t_first - 1]),
+            )
+
         results, pops, marks = [], [], []
-        for t in range(cfg.num_smc_sets):
+        for t in range(t_first, cfg.num_smc_sets):
             n_t = cfg.smc_size_at(t)
             last = t + 1 >= cfg.num_smc_sets
             n_next = 0 if last else cfg.smc_size_at(t + 1)
@@ -208,8 +604,14 @@ class AbcSmc:
                 ev = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
                 ev[0].record()
-            res = gen.step(params, seeds, cfg.pred_prior_size_at(t), n_next,
-                           draws, state, n_valid=n_t)
+            keep = cfg.pred_prior_size_at(t)
+            if pending_mets is not None:
+                res = gen.step_precomputed(params, pending_mets, keep, n_next,
+                                           draws, state, n_valid=n_t)
+                pending_mets = None
+            else:
+                res = gen.step(params, seeds, keep, n_next, draws, state,
+                               n_valid=n_t)
             if on_cuda:
                 ev[1].record()
             marks.append(ev)
@@ -231,23 +633,27 @@ class AbcSmc:
             ))
             for res, (pars_d, seeds_d, mets_d) in zip(results, pops)
         ]
-        self._mirror_fetched_sets(fetched)
+        self._mirror_fetched_sets(fetched, t_first, pending_serials)
         # the mirror appended one "device_generation" entry per set, in order
         for entry, ev in zip(self.timings[-len(marks):], marks):
             entry["device_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
         self.timings.append({
             "op": "run_device_phases", "sets": len(fetched),
-            "dispatch_s": t_dispatch,
+            "first_set": t_first, "dispatch_s": t_dispatch,
             "mirror_s": time.perf_counter() - t_mirror0,
         })
-        reports.report_convergence_data(self, len(fetched) - 1)
+        reports.report_convergence_data(self, t_first + len(fetched) - 1)
         return self
 
-    def _mirror_fetched_sets(self, fetched):
-        """Mirror the fetched per-set host tuples into the store and the
-        in-memory posterior state, then print each set's filtering report.
-        A negative ``ncomp_used`` (the step's U0 self-check) raises before
-        any store write for that set."""
+    def _mirror_fetched_sets(self, fetched, t0: int = 0,
+                             pending_serials=None):
+        """Mirror the fetched per-set host tuples (sets t0, t0+1, ...) into
+        the store and the in-memory posterior state, then print each set's
+        filtering report. Set t0's rows already exist when
+        ``pending_serials`` is given (a resume): their results are written
+        back guarded (rows already 'D' keep their metrics), then their
+        ranks. A negative ``ncomp_used`` (the step's U0 self-check) raises
+        before any store write for that set."""
         cfg = self.config
         if not self.storage.exists():
             self.storage.create(
@@ -255,7 +661,8 @@ class AbcSmc:
                 [m.short_name for m in self.metrics],
                 self.transform.has_any,
             )
-        for t, host in enumerate(fetched):
+        for i, host in enumerate(fetched):
+            t = t0 + i
             n_t = cfg.smc_size_at(t)
             (pars_h, seeds_h, mets_h, surv_h, w_h, dv_h, ncomp_h) = host
             ncomp_val = int(np.asarray(ncomp_h))
@@ -274,13 +681,22 @@ class AbcSmc:
             surv = np.asarray(surv_h, np.int64)
             ranks = np.full(len(pars_np), -1, np.int64)
             ranks[surv] = np.arange(len(surv))
-            upars = (
-                self.transform.to_model_space(torch.as_tensor(pars_np)).numpy()
-                if self.transform.has_any else None
-            )
-            self.storage.insert_generation_complete(
-                t, pars_np, seeds_np, mets_np, upars, ranks
-            )
+            if i == 0 and pending_serials is not None:
+                n_rows = len(pending_serials)
+                self.storage.write_results(
+                    pending_serials, mets_np,
+                    np.full(n_rows, int(time.time())), np.zeros(n_rows),
+                )
+                self.storage.write_posterior_ranks(pending_serials, ranks)
+            else:
+                upars = (
+                    self.transform.to_model_space(
+                        torch.as_tensor(pars_np)).numpy()
+                    if self.transform.has_any else None
+                )
+                self.storage.insert_generation_complete(
+                    t, pars_np, seeds_np, mets_np, upars, ranks
+                )
             self._particle_parameters.append(pars_np)
             self._particle_metrics.append(mets_np)
             self._predictive_prior.append(surv)
@@ -311,3 +727,16 @@ class AbcSmc:
             self._particle_parameters[set_num][surv],
             self._weights[set_num],
         )
+
+    # ----------------------------------------- not yet ported: the surfaces
+    def checkpoint(self, *args, **kwargs):
+        raise _not_ported("checkpoint")
+
+    def ess(self, *args, **kwargs):
+        raise _not_ported("ess")
+
+    def posterior_predictive(self, *args, **kwargs):
+        raise _not_ported("posterior_predictive")
+
+    def posterior_summary(self, *args, **kwargs):
+        raise _not_ported("posterior_summary")

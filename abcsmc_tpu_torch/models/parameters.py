@@ -6,9 +6,13 @@ Random draws are tensor inputs: :meth:`ParameterSet.noise_independent`
 takes unit uniforms ``u`` and maps them exactly as
 ``jax.random.truncated_normal`` maps its own uniforms, so feeding it
 ``jax.random.uniform(k_noise, shape)`` reproduces the JAX perturbation.
-The thin wrappers (:meth:`Parameter.sample`,
-:meth:`ParameterSet.sample_priors`, :meth:`ParameterSet.perturb_independent`)
-draw from an explicit ``torch.Generator``.
+The rejection loops (``noise_independent(method="rejection")`` and
+:meth:`ParameterSet.noise_multivariate`) take their first round's normals
+as an input and draw later rounds from a generator. The thin wrappers
+(:meth:`Parameter.sample`, :meth:`ParameterSet.sample_priors`,
+:meth:`ParameterSet.perturb_independent`,
+:meth:`ParameterSet.perturb_multivariate`) draw from an explicit
+``torch.Generator``.
 
 Fitting mode only: PSEUDO/POSTERIOR (projection) parameters are not yet
 ported and raise at construction.
@@ -250,24 +254,36 @@ class ParameterSet:
         return torch.stack(cols, dim=1)
 
     def noise_independent(self, mu, doubled_variance, u,
-                          method: str = "inverse_cdf"):
+                          method: str = "inverse_cdf",
+                          max_retries: int = 1000,
+                          generator: torch.Generator | None = None):
         """Truncated-normal perturbation ``x ~ N(mu, sqrt(dv))`` restricted
-        to each parameter's acceptance region, from unit uniforms ``u``
-        (same shape as ``mu``).
+        to each parameter's acceptance region.
 
-        ``u`` is mapped exactly as ``jax.random.truncated_normal`` maps its
+        ``method="inverse_cdf"``: ``u`` are unit uniforms (same shape as
+        ``mu``), mapped exactly as ``jax.random.truncated_normal`` maps its
         uniforms: ``z = sqrt2 * erfinv(lerp(erf(a/sqrt2), erf(b/sqrt2), u))``
         clamped to the open interval (a, b), then the post-recast values are
         clipped to the support (abcsmc_tpu/models/parameters.py:470-489).
-        Converged columns (dv == 0) keep ``mu``."""
-        if method != "inverse_cdf":
-            raise NotImplementedError(
-                f"noise method {method!r} is not yet ported to "
-                "abcsmc_tpu_torch (inverse_cdf only)"
-            )
+        Converged columns (dv == 0) keep ``mu``.
+
+        ``method="rejection"``: the reference's loop (src/AbcUtil.cpp:145-158)
+        per cell: ``u`` are the first round's standard normals; each later
+        round draws its normals from ``generator``, up to ``max_retries``
+        rounds in all; cells never accepted fall back to the prior mean."""
         dtype, device = mu.dtype, mu.device
         sigma = torch.sqrt(torch.as_tensor(doubled_variance, dtype=dtype,
                                            device=device))
+        if method == "rejection":
+            prior_means = torch.as_tensor(self.means(), dtype=dtype,
+                                          device=device)
+            return self._reject(
+                lambda eps: self.recast(mu + eps * sigma[None, :]),
+                self.valid_mask, u.to(dtype), max_retries, generator,
+                torch.broadcast_to(prior_means[None, :], mu.shape),
+            )
+        if method != "inverse_cdf":
+            raise ValueError(f"unknown noise method {method!r}")
         bounds = [p.noise_support() + p.value_bounds() for p in self.params]
         lo, hi, vlo, vhi = (
             torch.tensor(col, dtype=dtype, device=device)
@@ -289,6 +305,53 @@ class ParameterSet:
         u = torch.rand(mu.shape, generator=generator, device=mu.device,
                        dtype=mu.dtype)
         return self.noise_independent(mu, doubled_variance, u)
+
+    def noise_multivariate(self, mu, chol_lower, eps, max_retries: int = 1000,
+                           generator: torch.Generator | None = None):
+        """Truncated multivariate-normal perturbation
+        (src/AbcUtil.cpp:122-143): ``x = recast(mu + eps @ L^T)``, a row
+        accepted only when every column is valid. ``eps`` are the first
+        round's standard normals [n, P]; each later round draws from
+        ``generator``, up to ``max_retries`` rounds in all (the reference
+        loops forever); rows never accepted fall back to ``mu``. One host
+        read of the "all accepted" flag per round."""
+        L = torch.as_tensor(chol_lower).to(mu)
+        return self._reject(
+            lambda e: self.recast(mu + e @ L.T),
+            lambda x: self.valid_mask(x).all(dim=1, keepdim=True),
+            eps.to(mu.dtype), max_retries, generator, mu,
+        )
+
+    def perturb_multivariate(self, generator: torch.Generator, mu,
+                             chol_lower, max_retries: int = 1000):
+        """:meth:`noise_multivariate` with every round's normals drawn from
+        ``generator``."""
+        eps = torch.randn(mu.shape, generator=generator, device=mu.device,
+                          dtype=mu.dtype)
+        return self.noise_multivariate(mu, chol_lower, eps, max_retries,
+                                       generator)
+
+    @staticmethod
+    def _reject(propose, accept, eps, max_retries, generator, fallback):
+        """The bounded rejection loop shared by both noise kinds: keep the
+        first accepted proposal per cell (or row, where ``accept`` returns
+        [n, 1]); ``fallback`` where none was accepted."""
+        vals = propose(eps)
+        accepted = accept(vals)
+        attempts = 1
+        while attempts < max_retries and not bool(accepted.all()):
+            if generator is None:
+                raise ValueError(
+                    "rejection noise needs a generator for its retry rounds"
+                )
+            eps = torch.randn(eps.shape, generator=generator,
+                              device=eps.device, dtype=eps.dtype)
+            prop = propose(eps)
+            ok = accept(prop)
+            vals = torch.where(~accepted & ok, prop, vals)
+            accepted = accepted | ok
+            attempts += 1
+        return torch.where(accepted, vals, fallback)
 
 
 def truncated_normal_from_uniform(u, a, b):

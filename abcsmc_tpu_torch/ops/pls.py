@@ -8,10 +8,15 @@ iteration runs on tiny matrices. The component loop keeps the JAX package's
 The van der Voet sign stream is counter-hashed (murmur3 finalizer) and
 bit-equal to the JAX one. CPU torch has no ``>>`` on uint32, so the hash
 runs on int64 tensors holding uint32 values, with every product masked back
-to 32 bits.
+to 32 bits. Its seed is an input (a uint32 value), where the JAX functions
+take a PRNG key and derive it with ``vdv_seed``.
+
+Not yet ported: ``cv_loo`` and ``cv_lso`` (library-only API).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -101,3 +106,117 @@ def vdv_signs(seed, n_perm: int, gidx, dtype):
     h = _fmix32(g[None, :] ^ _fmix32(k[:, None] ^ s))
     one = torch.ones((), dtype=dtype, device=g.device)
     return torch.where((h & 1) == 1, one, -one)
+
+
+@dataclass(frozen=True)
+class PLSModel:
+    """Fitted PLS model: ``rotations`` R (m x A) maps X to scores,
+    ``x_loadings`` P (m x A), ``y_loadings`` Q (p x A); the coefficients for
+    A components are R[:, :A] @ Q[:, :A].T."""
+
+    rotations: torch.Tensor
+    x_loadings: torch.Tensor
+    y_loadings: torch.Tensor
+    ncomp: int
+
+    def scores(self, x, num_components: int | None = None):
+        """T = X @ R[:, :A]."""
+        a = self.ncomp if num_components is None else int(num_components)
+        return torch.as_tensor(x).to(self.rotations) @ self.rotations[:, :a]
+
+    def coefficients(self, num_components: int | None = None):
+        a = self.ncomp if num_components is None else int(num_components)
+        return self.rotations[:, :a] @ self.y_loadings[:, :a].T
+
+    def predict(self, x, num_components: int | None = None):
+        return (torch.as_tensor(x).to(self.rotations)
+                @ self.coefficients(num_components))
+
+    def cv_new_data(self, x_val, y_val):
+        """NEW_DATA validation error matrix [A, p]: entry [a, j] is the SSE
+        of response j with a+1 components on the held-out rows."""
+        return _sse_per_component(self.rotations, self.y_loadings,
+                                  torch.as_tensor(x_val).to(self.rotations),
+                                  _as_2d(y_val).to(self.rotations))
+
+
+def _as_2d(y):
+    y = torch.as_tensor(y)
+    return y[:, None] if y.dim() == 1 else y
+
+
+def fit(x, y, ncomp: int | None = None) -> PLSModel:
+    """PLS of Y on X (both already z-scored by the caller); ``ncomp``
+    defaults to min(n-1, m), NIPALS' maximum meaningful rank."""
+    x = torch.as_tensor(x)
+    y = _as_2d(y).to(x)
+    max_rank = min(x.shape[0] - 1, x.shape[1])
+    a = max_rank if ncomp is None else min(int(ncomp), max_rank)
+    a = max(a, 1)
+    R, P, Q = _fit_gram(x.T @ x, x.T @ y, a)
+    return PLSModel(rotations=R, x_loadings=P, y_loadings=Q, ncomp=a)
+
+
+def fit_from_gram(xtx, xty, ncomp: int) -> PLSModel:
+    """Fit directly from the Gram matrices X'X and X'Y."""
+    R, P, Q = _fit_gram(torch.as_tensor(xtx), torch.as_tensor(xty),
+                        int(ncomp))
+    return PLSModel(rotations=R, x_loadings=P, y_loadings=Q, ncomp=int(ncomp))
+
+
+def _per_row_sq_errors(R, Q, x_val, y_val):
+    """[nv, A, p] squared errors of the cumulative-component predictions,
+    per held-out row."""
+    t_val = x_val @ R
+    preds = torch.cumsum(t_val[:, :, None] * Q.T[None, :, :], dim=1)
+    resid = y_val[:, None, :] - preds
+    return resid * resid
+
+
+def _sse_per_component(R, Q, x_val, y_val):
+    """[A, p] SSE of the cumulative-component predictions on held-out rows."""
+    return _per_row_sq_errors(R, Q, x_val, y_val).sum(dim=0)
+
+
+def _vdv_pvalues(sq_err, seed, n_perm: int, gidx=None):
+    """Van der Voet (1994) sign-randomization p-values [A, p]: H0 "A
+    components do as well as the PRESS-minimal count", with the signs of the
+    per-row error differences randomized by :func:`vdv_signs`. ``seed`` is
+    the uint32 sign-stream seed; ``gidx`` the global row indices of the
+    validation rows (default 0..nv-1)."""
+    nv, _, p = sq_err.shape
+    press = sq_err.sum(dim=0)                                # [A, p]
+    best = torch.argmin(press, dim=0)                        # [p]
+    best_err = torch.gather(sq_err, 1,
+                            best[None, None, :].expand(nv, 1, p))
+    d = sq_err - best_err                                    # [nv, A, p]
+    t_obs = d.mean(dim=0)                                    # [A, p]
+    if gidx is None:
+        gidx = torch.arange(nv, device=sq_err.device)
+    signs = vdv_signs(seed, n_perm, gidx, sq_err.dtype)      # [K, nv]
+    t_perm = (signs @ d.reshape(nv, -1)).reshape(n_perm, *d.shape[1:]) / nv
+    del d
+    return (t_perm.abs() >= t_obs.abs()[None]).to(sq_err.dtype).mean(dim=0)
+
+
+def optimal_num_components_vdv(model: PLSModel, x_val, y_val, seed,
+                               n_perm: int = 199, alpha: float = 0.25,
+                               gidx=None):
+    """Per-response optimal component counts (1-based) by van der Voet's
+    test: the fewest components whose held-out errors are not significantly
+    worse (p > alpha) than the PRESS-minimal count's."""
+    R = model.rotations
+    sq_err = _per_row_sq_errors(R, model.y_loadings,
+                                torch.as_tensor(x_val).to(R),
+                                _as_2d(y_val).to(R))
+    ok = _vdv_pvalues(sq_err, seed, n_perm, gidx) > alpha
+    return torch.argmax(ok.to(torch.int32), dim=0) + 1
+
+
+def optimal_num_components(error_matrix, rel_tol: float = 0.1):
+    """Per-response optimal component counts (1-based) from a validation
+    error matrix [A, p]: the fewest components whose PRESS is within
+    ``rel_tol`` of the minimum."""
+    em = torch.as_tensor(error_matrix)
+    ok = em <= (1.0 + rel_tol) * em.min(dim=0).values[None, :]
+    return torch.argmax(ok.to(torch.int32), dim=0) + 1

@@ -20,22 +20,41 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
              launches, posterior mean closer to the stated truth than the
              prior mean;
 4. north   - 1,000,000 particles x 6 parameters x 13 metrics, keep 50,000,
-             3 sets, in-memory store: >= 2 kernel launches, ncomp_used > 1.
+             3 sets, in-memory store: >= 2 kernel launches, ncomp_used > 1;
+5. host_cli - dengue_surrogate (3 sets) through the host engine's job queue:
+             ``python -m abcsmc_tpu_torch cfg --process --simulate --all``
+             as a subprocess: 3 complete SQLite sets of 2,048 ranked rows,
+             ncomp_used > 1 in every ranking, 2 kernel launches per weight
+             call, posterior closer to the truth than the prior; the weights
+             of every set after set 0, rebuilt by a brain pass on a copy of
+             the store, held against the plain version on the same inputs
+             (log-weights within 2 x 2e-4 nats of each other);
+6. resume  - dengue_surrogate: ``--process`` then ``--simulate -n 51200``
+             (set 0 half done) as subprocesses, then
+             AbcSmc(cfg, device="cuda").run_device() finishes 3 sets with 2
+             kernel launches per set after set 0; the 51,200 rows simulated
+             first keep their metrics.
 
-Then the kernel summary line and, last, the device line. There is no CPU
+Each phase prints its wall time; the host phases also print the engine's
+timings split (read/rank/weight, propose, enqueue, claim, simulate,
+writeback). Then the kernel summary line (launches summed over every
+phase's main path) and, last, the device line. There is no CPU
 path: without CUDA (or outside a checkout) it exits nonzero and prints no
 result.
 """
 
+import ast
+import io
 import json
 import math
 import re
+import shutil
 import sqlite3
 import subprocess
 import sys
 import tempfile
 import time
-from contextlib import closing
+from contextlib import closing, redirect_stderr
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -274,6 +293,7 @@ def phase_dengue():
 
 def phase_north():
     import numpy as np
+    import torch
 
     from abcsmc_tpu_torch import AbcSmc
     from abcsmc_tpu_torch.models.simulators import (
@@ -284,7 +304,8 @@ def phase_north():
     npar, nmet, n, keep, n_sets = 6, 13, 1_000_000, 50_000, 3
     truth = np.random.default_rng(42).uniform(0.2, 0.8, npar)
     sim = make_linear_gaussian_simulator(npar, nmet, noise_sd=0.1)
-    obs = sim.run_batch(truth[None, :], np.array([7]))[0]
+    obs = sim.run_batch(truth[None, :], np.array([7]), np.array([0]),
+                        device="cpu", dtype=torch.float64)[0]
     cfg = {
         "smc_iterations": n_sets,
         "num_samples": n,
@@ -322,6 +343,185 @@ def phase_north():
     return launches
 
 
+HOST_SETS = 3       # the host phases cut dengue_surrogate's sets, not widths
+
+
+def dengue_host_config(tmp):
+    """examples/dengue_surrogate.json at its full width with its sets cut
+    to HOST_SETS and its store in ``tmp``; returns (config path, cfg, db,
+    truth)."""
+    import numpy as np
+
+    cfg = json.loads((REPO / "examples" / "dengue_surrogate.json").read_text())
+    truth = np.array(json.loads(
+        re.search(r"truth=(\[[^\]]*\])", cfg["comment"]).group(1)))
+    print(f"host phases: smc_iterations {cfg['smc_iterations']} -> "
+          f"{HOST_SETS} (widths unchanged)", flush=True)
+    cfg["smc_iterations"] = HOST_SETS
+    db = str(Path(tmp) / "dengue_host.sqlite")
+    cfg["database_filename"] = db
+    path = Path(tmp) / "dengue_host.json"
+    path.write_text(json.dumps(cfg))
+    return str(path), cfg, db, truth
+
+
+def cli(*args):
+    """``python -m abcsmc_tpu_torch`` as a subprocess on the card; returns
+    (wall seconds, the [timing] entries, the kernel launches it counted)."""
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "abcsmc_tpu_torch", *args, "--verbose"],
+        cwd=REPO, capture_output=True, text=True, timeout=900,
+    )
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        sys.stderr.write(run.stderr[-4000:])
+    check(run.returncode == 0, f"cli {args} exited {run.returncode}")
+    timings = [ast.literal_eval(line[len("[timing] "):])
+               for line in run.stderr.splitlines()
+               if line.startswith("[timing] ")]
+    launches = int(re.search(r"\[kernel\] mixture_logsumexp\.launches (\d+)",
+                             run.stderr).group(1))
+    return wall, timings, launches
+
+
+def store_rows(db):
+    with closing(sqlite3.connect(db)) as con:
+        return con.execute(
+            "select smcSet, count(*), sum(status = 'D'), "
+            "sum(posterior > -1) from job group by smcSet order by smcSet"
+        ).fetchall()
+
+
+def timing_split(timings):
+    """Seconds per host-engine stage, summed over the run's entries."""
+    keys = ("read_rank_weight_s", "rank_s", "weight_s", "propose_s",
+            "enqueue_s", "claim_s", "sim_s", "writeback_s")
+    return {k: sum(e.get(k, 0.0) for e in timings
+                   if e["op"] in ("process", "simulate")) for k in keys}
+
+
+def posterior_rmse(pars, truth):
+    import numpy as np
+
+    check(np.isfinite(pars).all(), "finite posterior")
+    rmse_post = float(np.sqrt(((pars.mean(0) - truth) ** 2).mean()))
+    rmse_prior = float(np.sqrt(((0.5 - truth) ** 2).mean()))
+    check(rmse_post < rmse_prior,
+          f"posterior rmse {rmse_post} >= prior {rmse_prior}")
+    return rmse_post, rmse_prior
+
+
+def phase_host_cli():
+    import numpy as np
+    import torch
+
+    from abcsmc_tpu_torch import AbcSmc
+    from abcsmc_tpu_torch.ops import stats
+    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp_reference
+    from abcsmc_tpu_torch.ops.weights import _prep_scaled
+
+    n, keep = 102_400, 2_048
+    with tempfile.TemporaryDirectory() as tmp:
+        path, cfg, db, truth = dengue_host_config(tmp)
+        wall, timings, launches = cli(path, "--process", "--simulate",
+                                      "--all", "--seed", "1")
+        rows = store_rows(db)
+        check(rows == [(t, n, n, keep) for t in range(HOST_SETS)],
+              f"host_cli store rows {rows}")
+        ncomp = [e["ncomp_used"] for e in timings if e["op"] == "rank"]
+        check(len(ncomp) == HOST_SETS and min(ncomp) > 1,
+              f"host_cli ncomp {ncomp}")
+        # every pass weighs each set it reads after set 0 in one auto call
+        # (2 launches)
+        calls = sum(e["sets"] - 1 for e in timings if e["op"] == "process")
+        check(calls > 0 and launches == 2 * calls,
+              f"host_cli kernel launches {launches} for {calls} auto calls")
+
+        # the brain's state rebuilt by a brain pass on a copy of the store
+        # (every set is ranked and the run is complete: the pass only reads
+        # and weighs); these launches are not the main path's
+        copy = str(Path(tmp) / "copy.sqlite")
+        shutil.copyfile(db, copy)
+        cfg["database_filename"] = copy
+        eng = AbcSmc(cfg, device="cuda")
+        with redirect_stderr(io.StringIO()):
+            check(eng.process_database(seed=1), "host_cli: brain pass")
+        eng.storage.close()
+    post = [eng.posterior(t) for t in range(HOST_SETS)]
+    rmse_post, rmse_prior = posterior_rmse(post[-1][0], truth)
+
+    # each set's weights against the plain version on the same inputs, as
+    # log-weights up to the normalisation: the kernel's bound of TOL nats on
+    # every denominator bounds their spread by 2 * TOL
+    spread = []
+    for t in range(1, HOST_SETS):
+        pars, prev = eng._tensor(post[t][0]), eng._tensor(post[t - 1][0])
+        a, b, log_norm = _prep_scaled(pars, prev,
+                                      stats.doubled_variance(prev))
+        ref = mixture_logsumexp_reference(
+            a.contiguous(), b.contiguous(),
+            torch.log(eng._tensor(post[t - 1][1])))
+        log_w = (eng.par_set.prior_log_pdf(pars) - (ref + log_norm)).double()
+        d = np.log(post[t][1]) - log_w.cpu().numpy()
+        live = log_w.cpu().numpy() > float(log_w.max()) - 80.0
+        spread.append(float(np.ptp(d[live])))
+    check(max(spread) <= 2 * TOL,
+          f"host-path log-weights vs plain: spread {spread} nats")
+    emit({"phase": "host_cli", "store_rows": rows, "ncomp": ncomp,
+          "launches": launches, "auto_calls": calls, "wall_s": wall,
+          "split_s": timing_split(timings),
+          "per_set": [e for e in timings if e["op"] != "rank"],
+          "log_weight_spread_nats": spread, "rmse_posterior": rmse_post,
+          "rmse_prior": rmse_prior})
+    return launches
+
+
+def phase_resume():
+    import numpy as np
+
+    from abcsmc_tpu_torch import AbcSmc
+    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
+    from abcsmc_tpu_torch.storage import SQLiteStorage
+
+    n, keep, half = 102_400, 2_048, 51_200
+    with tempfile.TemporaryDirectory() as tmp:
+        path, cfg, db, truth = dengue_host_config(tmp)
+        wall_p, _, _ = cli(path, "--process", "--seed", "1")
+        wall_s, sim_timings, _ = cli(path, "--simulate", "-n", str(half))
+        before = SQLiteStorage(db).read_generations()[0]
+        done = before.statuses == "D"
+        check(int(done.sum()) == half, f"resume: {int(done.sum())} rows done")
+        mixture_logsumexp.launches = 0
+        t0 = time.perf_counter()
+        run = AbcSmc(cfg, device="cuda").run_device(seed=2)
+        wall = time.perf_counter() - t0
+        launches = mixture_logsumexp.launches
+        run.storage.close()
+        rows = store_rows(db)
+        after = SQLiteStorage(db).read_generations()[0]
+    check(rows == [(t, n, n, keep) for t in range(HOST_SETS)],
+          f"resume store rows {rows}")
+    check(np.array_equal(after.metrics[done], before.metrics[done]),
+          "resume changed metrics of rows already done")
+    # one auto call (2 launches) for each set after set 0
+    check(launches == 2 * (HOST_SETS - 1),
+          f"resume kernel launches {launches}")
+    gens = [e for e in run.timings if e["op"] == "device_generation"]
+    ncomp = [e["ncomp_used"] for e in gens]
+    check(min(ncomp) > 1, f"resume ncomp {ncomp}")
+    rmse_post, rmse_prior = posterior_rmse(run.posterior()[0], truth)
+    emit({"phase": "resume", "store_rows": rows, "ncomp": ncomp,
+          "launches": launches, "wall_s": wall,
+          "cli_wall_s": {"process": wall_p, "simulate_half": wall_s},
+          "simulate_half_split_s": timing_split(sim_timings),
+          "set_ms": [e["device_ms"] for e in gens],
+          "phases": [e for e in run.timings
+                     if e["op"] == "run_device_phases"],
+          "rmse_posterior": rmse_post, "rmse_prior": rmse_prior})
+    return launches
+
+
 def main() -> int:
     if not (REPO / "abcsmc_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -351,7 +551,8 @@ def main() -> int:
           "nvcc_seconds": _build.build_seconds["mixture_logsumexp"]})
 
     errs, times = phase_kernel()
-    launches = phase_dengue() + phase_north()
+    launches = (phase_dengue() + phase_north() + phase_host_cli()
+                + phase_resume())
     n, m, p = KERNEL_SHAPES[-1]
     big = f"{n}x{m}x{p}"
     bound = kernel_bound_ms(n, m, p)

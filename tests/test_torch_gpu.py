@@ -208,3 +208,81 @@ def test_run_device_on_cuda_launches_the_kernel(cuda):
     assert np.isfinite(pars).all() and np.isfinite(w).all()
     gens = [e for e in a.timings if e["op"] == "device_generation"]
     assert len(gens) == 3 and all(e["device_ms"] > 0 for e in gens)
+
+
+# ---------------------------------------------------------- the host engine
+def _gauss_cfg(n, sets):
+    return {"smc_iterations": sets, "num_samples": n,
+            "predictive_prior_fraction": 0.1, "simulator": "gaussian",
+            "parameters": [
+                {"name": "mu", "dist_type": "UNIFORM", "num_type": "FLOAT",
+                 "par1": 0.0, "par2": 5.0},
+                {"name": "sigma", "dist_type": "UNIFORM", "num_type": "FLOAT",
+                 "par1": 0.1, "par2": 5.0}],
+            "metrics": [{"name": "mean", "num_type": "FLOAT", "value": 2.0},
+                        {"name": "sd", "num_type": "FLOAT", "value": 1.5}]}
+
+
+def test_host_loop_on_cuda_launches_the_kernel(cuda):
+    """The host brain on a CUDA engine weighs every set after the first
+    through the kernel (2 launches per auto call)."""
+    a = AbcSmc(_gauss_cfg(4000, 3), device="cuda")
+    kernels.mixture_logsumexp.launches = 0
+    with redirect_stderr(io.StringIO()):
+        a.run(seed=0)
+    # passes 2 and 3 weigh set 1, pass 3 also set 2: three auto calls
+    assert kernels.mixture_logsumexp.launches == 6
+    pars, w = a.posterior()
+    assert np.isfinite(pars).all() and np.isfinite(w).all()
+    assert abs(float(pars[:, 0].mean()) - 2.0) < 0.5
+    ranks = [e["ncomp_used"] for e in a.timings if e["op"] == "rank"]
+    assert ranks == [2, 2, 2]
+
+
+def test_device_simulator_run_batch_on_cuda(cuda):
+    from abcsmc_tpu_torch.models.simulators import make_dice_simulator
+
+    rng = np.random.default_rng(3)
+    for sim, p in (
+        (make_linear_gaussian_simulator(6, 13), rng.uniform(0, 1, (500, 6))),
+        (make_dice_simulator(), rng.integers(1, 60, (500, 2)).astype(float)),
+    ):
+        seeds = rng.integers(0, 2**31 - 1, 500)
+        got = sim.run_batch(p, seeds, np.arange(500), device=cuda,
+                            dtype=torch.float32)
+        want = sim.batch_fn(torch.as_tensor(p, dtype=torch.float32,
+                                            device=cuda),
+                            torch.as_tensor(seeds, device=cuda))
+        np.testing.assert_array_equal(got, want.double().cpu().numpy())
+        cpu64 = sim.run_batch(p, seeds, np.arange(500), device="cpu",
+                              dtype=torch.float64)
+        np.testing.assert_allclose(got, cpu64, rtol=1e-5, atol=1e-5)
+
+
+def test_host_ranking_cuda_matches_cpu(cuda):
+    """The f32 ranking on the card picks the f64 CPU ranking's component
+    count, and keeps the same survivors at every cut where the f64 gap
+    between the last kept and the first dropped particle is wider than
+    twice the f32 distances' relative error (``rank_precision`` prints
+    both for this data)."""
+    from abcsmc_tpu_torch.ops import ranking
+    from abcsmc_tpu_torch.rank_precision import gpu_test_rows
+
+    x, y, obs, frac, _ = gpu_test_rows()
+    out = {}
+    for dev, dt in ((torch.device("cpu"), torch.float64),
+                    (cuda, torch.float32)):
+        order, d, ncomp = ranking.ranking_pls(
+            *(torch.as_tensor(v).to(dev, dt) for v in (x, y, obs)), frac)
+        assert order.device.type == dev.type
+        out[dev.type] = (order.cpu().numpy(), d.double().cpu().numpy(), ncomp)
+    (o64, d64, c64), (o32, d32, c32) = out["cpu"], out["cuda"]
+    assert c64 == c32 > 1
+    top = o64[:2000]
+    err = np.max(np.abs(d32[top] - d64[top]) / d64[top])
+    s64 = d64[o64]
+    cuts = [k for k in range(100, 2000)
+            if (s64[k] - s64[k - 1]) / s64[k] > 2 * err]
+    assert len(cuts) >= 100
+    for k in cuts:
+        assert set(o64[:k]) == set(o32[:k]), k

@@ -149,6 +149,12 @@ def test_projection_parameters_not_yet_ported():
 
 
 # -------------------------------------------------------------- simulators
+def _run(s, params, seeds):
+    """A device simulator's run_batch on the CPU in float64."""
+    return s.run_batch(params, seeds, np.arange(len(seeds)), device="cpu",
+                       dtype=torch.float64)
+
+
 @pytest.mark.parametrize("shape", [(16, 100), (6, 13)])
 def test_shipped_mix_bit_equal_to_jax(shape):
     want = np.asarray(jax.random.normal(jax.random.PRNGKey(7), shape,
@@ -164,7 +170,7 @@ def test_unknown_mix_shape_raises_and_mix_argument_wins():
     mix = np.arange(15, dtype=np.float64).reshape(3, 5)
     s = sim.make_linear_gaussian_simulator(3, 5, noise_sd=0.0, mix=mix)
     p = np.array([[1.0, 2.0, 3.0]])
-    np.testing.assert_array_equal(s.run_batch(p, np.array([5])), p @ mix)
+    np.testing.assert_array_equal(_run(s, p, np.array([5])), p @ mix)
     with pytest.raises(SimulatorError):
         sim.make_linear_gaussian_simulator(5, 3, mix=mix)
 
@@ -175,12 +181,11 @@ def test_counter_noise_replays_from_seed():
     rng = np.random.default_rng(4)
     p = rng.uniform(0, 1, (50, 6))
     seeds = rng.integers(0, 2**31 - 1, 50)
-    full = s.run_batch(p, seeds)
+    full = _run(s, p, seeds)
     perm = rng.permutation(50)
-    np.testing.assert_array_equal(s.run_batch(p[perm], seeds[perm]),
-                                  full[perm])
-    np.testing.assert_array_equal(s.run_batch(p[7:8], seeds[7:8]), full[7:8])
-    assert not np.array_equal(full[0], s.run_batch(p[:1], seeds[1:2])[0])
+    np.testing.assert_array_equal(_run(s, p[perm], seeds[perm]), full[perm])
+    np.testing.assert_array_equal(_run(s, p[7:8], seeds[7:8]), full[7:8])
+    assert not np.array_equal(full[0], _run(s, p[:1], seeds[1:2])[0])
 
 
 def test_linear_gaussian_simulator_in_law():
@@ -192,7 +197,7 @@ def test_linear_gaussian_simulator_in_law():
     p = np.repeat(truth, n, axis=0)
     seeds = np.arange(n, dtype=np.uint64) * 7919 + 11
     a = jax_sim.run_batch(p, seeds, np.arange(n))
-    b = port.run_batch(p, seeds)
+    b = _run(port, p, seeds)
     np.testing.assert_allclose(b.mean(0), (truth @ mix)[0], atol=0.03)
     for j in range(nmet):
         assert ks_distance(a[:, j], b[:, j]) < 0.05, j
@@ -205,7 +210,7 @@ def test_gaussian_simulator_in_law():
     p = np.repeat(np.array([[1.3, 0.6]]), n, axis=0)
     seeds = np.arange(n, dtype=np.uint64) + 100
     a = jax_sim.run_batch(p, seeds, np.arange(n))
-    b = port.run_batch(p, seeds)
+    b = _run(port, p, seeds)
     for j in range(2):
         assert ks_distance(a[:, j], b[:, j]) < 0.05, j
 
@@ -218,6 +223,6 @@ def test_resolve_simulator_ported_and_not_ported():
     assert isinstance(sim.resolve_simulator(cfg), sim.DeviceSimulator)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         sim.resolve_simulator(parse_config({**base, "simulator": "sir"}))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        sim.resolve_simulator(parse_config({**base, "executable": "x"}))
+    assert isinstance(sim.resolve_simulator(parse_config(
+        {**base, "executable": "x"})), sim.ExecSimulator)
     assert sim.resolve_simulator(parse_config(base)) is None
