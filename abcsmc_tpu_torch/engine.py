@@ -13,14 +13,18 @@ Two ways to run, as in the JAX package:
 - :meth:`AbcSmc.run_device`: one generation step per set on the device,
   each set mirrored into the store afterwards. It resumes from an existing
   store (at a set boundary or mid-set) and hands a host-only simulator to
-  :meth:`AbcSmc.run`.
+  :meth:`AbcSmc.run`. A projection config (PSEUDO/POSTERIOR parameters,
+  src/AbcSmc.cpp:54-137, 341-396) takes the projection route instead: the
+  host odometer builds the sweep, and the whole sweep is simulated in one
+  call on the device.
 
 One process: the JAX package's multi-process gating (``_store_writer``,
 ``_mesh_sync``, ``_writer_guard``, ``_broadcast_flag``) collapses to the
 single-process case. Not yet ported, each raising ``NotImplementedError``
-where it is reached: projection, POSTERIOR/PSEUDO parameters, the fused
-``run_scan``/``run_chain`` dispatch and, inside the device step, chunked
-row passes, Box-Cox, split propose, two-stage top-K and MULTIVARIATE noise.
+where it is reached: the fused ``run_scan``/``run_chain`` dispatch, inside
+the device step chunked row passes, split propose and two-stage top-K, and
+the ``checkpoint``/``ess``/``posterior_predictive``/``posterior_summary``
+surfaces.
 """
 
 from __future__ import annotations
@@ -116,9 +120,21 @@ class AbcSmc:
                 "config": json.dumps(config.raw) if config.raw else "",
             }
 
+        # POSTERIOR parameters source their values from a previous run's
+        # store (src/AbcSmc.cpp:385-396)
+        self._posterior_matrix = None
+        if self.par_set.posterior_idx:
+            post_names = [self.par_set.params[i].short_name
+                          for i in self.par_set.posterior_idx]
+            src = SQLiteStorage(config.posterior_database_filename)
+            self._posterior_matrix = src.read_posterior_matrix(post_names)
+            src.close()
+
         #: per-call stage timings: "process" / "rank" / "simulate" entries
-        #: from the host engine, one "device_generation" entry per set and
-        #: one "run_device_phases" entry per run from the device path
+        #: from the host engine, one "device_generation" entry per set (the
+        #: step's CUDA-event milliseconds, its simulate stage apart) and
+        #: one "run_device_phases" entry per run from the device path, one
+        #: "simulate_device" entry per set from the projection route
         self.timings: list[dict] = []
         self._stopped_early = False
         self._particle_parameters: list[np.ndarray] = []
@@ -194,12 +210,17 @@ class AbcSmc:
             )
         gen = self._generator(seed)
         n = self.config.smc_size_at(0)
-        samples = self.par_set.sample_priors(gen, n, self.dtype)
+        samples = self.par_set.sample_priors(gen, n, self.dtype,
+                                             self._posterior_matrix)
         seeds = self._draw_seeds(gen, n)
         upars = (_host(self.transform.to_model_space(samples))
                  if self.transform.has_any else None)
+        # a projection over a posterior keeps each row's source rank
+        ranks = None
+        if self.config.retain_posterior_rank and self.par_set.posterior_idx:
+            ranks = self.par_set.indexed_grid_values(n)[1]
         serials = self.storage.insert_generation(
-            0, _host(samples), seeds, upars, None, if_empty=repairing
+            0, _host(samples), seeds, upars, ranks, if_empty=repairing
         )
         # None: another worker repaired the store between the emptiness
         # check and the insert; read it like any other store
@@ -281,8 +302,6 @@ class AbcSmc:
         """read_SMC_sets_from_database (src/AbcSmc.cpp:562-679): every set
         must be complete and of the configured size. Returns (the sets, or
         None when one is incomplete; rank seconds; weight seconds)."""
-        if self.config.projection_mode:
-            raise _not_ported("projection mode")
         gens = self.storage.read_generations()
         rank_s = weight_s = 0.0
         for gen in gens:
@@ -302,6 +321,17 @@ class AbcSmc:
                 )
             self._particle_parameters.append(gen.params)
             self._particle_metrics.append(gen.metrics)
+            if self.config.projection_mode:
+                # no filtering or weighting: the sweep itself is the
+                # product; retained ranks, if any, came from the source
+                # posterior (src/AbcSmc.cpp:341, 849-853)
+                surv = (gen.predictive_prior_indices() if gen.has_posterior
+                        else np.arange(gen.size))
+                self._predictive_prior.append(surv)
+                self._doubled_variance.append(
+                    _host(stats.doubled_variance(self._tensor(gen.params))))
+                self._weights.append(np.full(len(surv), 1.0 / len(surv)))
+                continue
             dt_rank, dt_weight = self._ingest_complete_set(gen, t)
             rank_s += dt_rank
             weight_s += dt_weight
@@ -469,13 +499,6 @@ class AbcSmc:
     # --------------------------------------------------------- device path
     def _check_slice(self):
         cfg = self.config
-        if cfg.projection_mode:
-            raise _not_ported("projection mode")
-        if cfg.box_cox:
-            raise _not_ported("Box-Cox ranking inside the device step "
-                              "(box_cox)")
-        if cfg.noise == NoiseType.MULTIVARIATE:
-            raise _not_ported("MULTIVARIATE noise inside the device step")
         if cfg.row_block:
             raise _not_ported("chunked row passes (row_block)")
         if cfg.propose_split:
@@ -544,8 +567,11 @@ class AbcSmc:
                     "falling back to host engine\n"
                 )
             return self.run(seed, verbose)
-        self._check_slice()
         cfg = self.config
+        if (cfg.projection_mode or self.par_set.pseudo_idx
+                or self.par_set.posterior_idx):
+            return self._run_device_projection(seed, verbose)
+        self._check_slice()
         self._reset_state()
         kind, pending = self._resume_point(seed, verbose)
         if kind == "done":
@@ -557,9 +583,13 @@ class AbcSmc:
             self.par_set, self.transform, self.simulator, self.obs,
             device=self.device, dtype=self.dtype,
             filter_type=cfg.filter,
+            noise_type=cfg.noise,
             training_fraction=cfg.pls_training_fraction,
+            max_retries=cfg.max_retries,
             pls_optimal_method=cfg.pls_optimal_method,
             resample_method=cfg.resample_method,
+            box_cox=cfg.box_cox,
+            weight_precision=cfg.weight_precision,
         )
         generator = torch.Generator(device=self.device)
         generator.manual_seed(int(seed) & 0xFFFFFFFFFFFFFFFF)
@@ -635,8 +665,15 @@ class AbcSmc:
         ]
         self._mirror_fetched_sets(fetched, t_first, pending_serials)
         # the mirror appended one "device_generation" entry per set, in order
-        for entry, ev in zip(self.timings[-len(marks):], marks):
+        for entry, ev, res in zip(self.timings[-len(marks):], marks, results):
             entry["device_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
+            sim = res.sim_events
+            entry["simulate_ms"] = sim[0].elapsed_time(sim[1]) if sim else None
+            # rounds of the MULTIVARIATE rejection loop: each one read a
+            # flag from the device in the middle of the step
+            entry["mvn_rounds"] = res.mvn_rounds
+            if res.box_cox_lambdas is not None:
+                entry["box_cox_lambdas"] = _host(res.box_cox_lambdas).tolist()
         self.timings.append({
             "op": "run_device_phases", "sets": len(fetched),
             "first_set": t_first, "dispatch_s": t_dispatch,
@@ -707,6 +744,26 @@ class AbcSmc:
                 "ncomp_used": ncomp_val,
             })
             reports.filtering_report(self, t, pars_np[surv], mets_np[surv])
+
+    # ---------------------------------------------------------- projection
+    def _run_device_projection(self, seed: int, verbose: bool):
+        """Projection sweeps (PSEUDO/POSTERIOR grids, src/AbcSmc.cpp:54-137,
+        341-396) on the device path: the brain builds the population with
+        the host odometer exactly as ``--process`` would (ParRNG.h:17-36
+        order), then each set is simulated in one call on the device
+        instead of claim-sized host batches: claim all, one ``batch_fn``
+        call, DBL_MIN bandaid, guarded writeback. The set's timing entry
+        is filed under the op "simulate_device"."""
+        for t in range(self.config.num_smc_sets):
+            self.process_database(seed + t, verbose)
+            if self._stopped_early:
+                return self
+            filed = len(self.timings)
+            self.simulate_next_particles(n=-1)
+            for entry in self.timings[filed:]:
+                entry["op"] = "simulate_device"
+        self.process_database(seed + self.config.num_smc_sets, verbose)
+        return self
 
     # ------------------------------------------------------------ results
     @property

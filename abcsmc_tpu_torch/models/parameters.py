@@ -14,8 +14,9 @@ as an input and draw later rounds from a generator. The thin wrappers
 :meth:`ParameterSet.perturb_multivariate`) draw from an explicit
 ``torch.Generator``.
 
-Fitting mode only: PSEUDO/POSTERIOR (projection) parameters are not yet
-ported and raise at construction.
+PSEUDO and POSTERIOR (projection) parameters are enumerated on the host
+(:meth:`ParameterSet.indexed_grid_values`, numpy) in the reference's
+odometer order; asking them for a density, a recast or noise raises.
 """
 
 from __future__ import annotations
@@ -35,6 +36,9 @@ _LOG_2PI = math.log(2.0 * math.pi)
 
 class Parameter:
     """Base prior. Concrete types implement vectorized sample/log_pdf/recast."""
+
+    is_posterior: bool = False
+    state_size: int = 0  # 0 == not an indexed (PSEUDO/POSTERIOR) parameter
 
     def __init__(self, name: str, short_name: str | None = None):
         self.name = name
@@ -180,6 +184,54 @@ class DiscreteUniformPrior(Parameter):
         return (float(self.min_val), float(self.max_val))
 
 
+class _IndexedParameter(Parameter):
+    """A parameter swept over an index, never drawn: sampling, likelihood
+    and recast are errors (IndexedPars.h:20-28)."""
+
+    def sample(self, generator, n, dtype):
+        raise ConfigError(
+            f"it is an error to randomly sample an indexed parameter: {self.name}"
+        )
+
+    def log_pdf(self, x):
+        raise ConfigError(
+            f"it is an error to ask for likelihood from an IndexedPar; "
+            f"attempted on {self.name}",
+            code=-1,
+        )
+
+    def recast(self, x):
+        raise ConfigError(
+            f"it is an error to attempt to recast an IndexedPar; "
+            f"attempted on {self.name}",
+            code=-1,
+        )
+
+
+class PseudoParameter(_IndexedParameter):
+    """Enumerated grid parameter (IndexedPars.h:32-43)."""
+
+    def __init__(self, name, values: Sequence[float], short_name=None):
+        super().__init__(name, short_name)
+        assert len(values) > 0
+        self.values = tuple(float(v) for v in values)
+        self.state_size = len(self.values)
+
+
+class PosteriorParameter(_IndexedParameter):
+    """Rank-indexed parameter whose values come from a previous run's
+    posterior (IndexedPars.h:45-55): the sweep enumerates the rank, the
+    sampler fills the value from the posterior matrix
+    (src/AbcUtil.cpp:510-523)."""
+
+    is_posterior = True
+
+    def __init__(self, name, size: int, short_name=None):
+        super().__init__(name, short_name)
+        assert size > 0
+        self.state_size = int(size)
+
+
 def parameter_from_spec(spec: ParameterSpec) -> Parameter:
     if spec.dist_type == DistType.UNIFORM:
         if spec.num_type == NumType.INT:
@@ -191,12 +243,11 @@ def parameter_from_spec(spec: ParameterSpec) -> Parameter:
         )
     if spec.dist_type == DistType.NORMAL:
         return GaussianPrior(spec.name, spec.par1, spec.par2, spec.short_name)
-    if spec.dist_type in (DistType.PSEUDO, DistType.POSTERIOR):
-        raise NotImplementedError(
-            f"parameter '{spec.name}': {spec.dist_type.name} parameters "
-            "(projection mode) are not yet ported to abcsmc_tpu_torch; "
-            "run projections with abcsmc_tpu"
-        )
+    if spec.dist_type == DistType.PSEUDO:
+        return PseudoParameter(spec.name, spec.values, spec.short_name)
+    if spec.dist_type == DistType.POSTERIOR:
+        return PosteriorParameter(spec.name, spec.posterior_size,
+                                  spec.short_name)
     raise ConfigError(f"unknown dist_type {spec.dist_type}", code=-205)
 
 
@@ -209,6 +260,20 @@ class ParameterSet:
 
     def __post_init__(self):
         self.npar = len(self.params)
+        self.prior_idx = [
+            i for i, p in enumerate(self.params) if p.state_size == 0
+        ]
+        self.pseudo_idx = [
+            i for i, p in enumerate(self.params)
+            if p.state_size > 0 and not p.is_posterior
+        ]
+        self.posterior_idx = [
+            i for i, p in enumerate(self.params) if p.is_posterior
+        ]
+        self.posterior_size = (
+            self.params[self.posterior_idx[0]].state_size
+            if self.posterior_idx else 0
+        )
         self._int_cols = np.array(
             [isinstance(p, DiscreteUniformPrior) for p in self.params],
             dtype=bool,
@@ -230,15 +295,73 @@ class ParameterSet:
     def short_names(self) -> list[str]:
         return [p.short_name for p in self.params]
 
-    def sample_priors(self, generator: torch.Generator, n: int, dtype):
-        """Generation-0 draws [n, npar] on ``generator.device``, one column
-        per prior in config order."""
-        cols = [p.sample(generator, n, dtype) for p in self.params]
+    def indexed_grid_values(self, n: int) -> tuple[np.ndarray, np.ndarray]:
+        """PSEUDO grid values and POSTERIOR rank indices of samples 0..n-1,
+        as host numpy: (pseudo_vals [n, n_pseudo], post_ranks [n] or empty).
+
+        The reference's odometer (ParRNG.h:17-36) as mixed-radix index
+        arithmetic: the first PSEUDO parameter in config order is the
+        fastest digit, later ones roll over after it, and the posterior
+        rank advances only when every PSEUDO grid has rolled over."""
+        i = np.arange(n, dtype=np.int64)
+        pseudo_vals = np.zeros((n, len(self.pseudo_idx)))
+        radix = 1
+        for col, pidx in enumerate(self.pseudo_idx):
+            par = self.params[pidx]
+            digits = (i // radix) % par.state_size
+            pseudo_vals[:, col] = np.asarray(par.values)[digits]
+            radix *= par.state_size
+        if self.posterior_idx:
+            post_ranks = (i // radix) % self.posterior_size
+        else:
+            post_ranks = np.zeros((0,), dtype=np.int64)
+        return pseudo_vals, post_ranks
+
+    def sample_priors(self, generator: torch.Generator, n: int, dtype,
+                      posterior_matrix: np.ndarray | None = None):
+        """Generation-0 or projection samples [n, npar] on
+        ``generator.device``, one column per parameter in config order
+        (src/AbcUtil.cpp:490-526): random draws for the priors, the
+        enumeration of :meth:`indexed_grid_values` for PSEUDO parameters
+        and the rows of ``posterior_matrix`` [rows, n_posterior] at the
+        enumerated ranks for POSTERIOR ones. The ranks are
+        ``indexed_grid_values(n)[1]``."""
+        cols = [None] * self.npar
+        for idx in self.prior_idx:
+            cols[idx] = self.params[idx].sample(generator, n, dtype)
+        if self.pseudo_idx or self.posterior_idx:
+            pseudo_vals, post_ranks = self.indexed_grid_values(n)
+            dev = generator.device
+            for col, idx in enumerate(self.pseudo_idx):
+                cols[idx] = torch.as_tensor(pseudo_vals[:, col]).to(dev, dtype)
+            if self.posterior_idx:
+                if posterior_matrix is None:
+                    raise ConfigError(
+                        "POSTERIOR parameters require a posterior matrix "
+                        "(posterior_database_filename)",
+                        code=-204,
+                    )
+                pm = np.asarray(posterior_matrix, np.float64)
+                assert pm.shape[1] == len(self.posterior_idx)
+                for col, idx in enumerate(self.posterior_idx):
+                    cols[idx] = torch.as_tensor(
+                        pm[post_ranks, col]).to(dev, dtype)
         return torch.stack(cols, dim=1)
+
+    def _require_all_priors(self, what: str):
+        if self.pseudo_idx or self.posterior_idx:
+            bad = self.params[(self.pseudo_idx + self.posterior_idx)[0]]
+            raise ConfigError(
+                f"it is an error to ask for {what} with indexed "
+                f"(PSEUDO/POSTERIOR) parameters present; attempted on "
+                f"{bad.name}",
+                code=-1,
+            )
 
     def prior_log_pdf(self, theta):
         """Summed prior log density per row: the SMC weight numerator
         (src/AbcUtil.cpp:556-561)."""
+        self._require_all_priors("likelihood")
         lps = [self.params[i].log_pdf(theta[:, i]) for i in range(self.npar)]
         return torch.stack(lps, dim=1).sum(dim=1)
 
@@ -250,6 +373,7 @@ class ParameterSet:
         return torch.where(mask[None, :], torch.round(theta), theta)
 
     def valid_mask(self, theta):
+        self._require_all_priors("validity")
         cols = [self.params[i].valid(theta[:, i]) for i in range(self.npar)]
         return torch.stack(cols, dim=1)
 
@@ -271,6 +395,7 @@ class ParameterSet:
         per cell: ``u`` are the first round's standard normals; each later
         round draws its normals from ``generator``, up to ``max_retries``
         rounds in all; cells never accepted fall back to the prior mean."""
+        self._require_all_priors("noise")
         dtype, device = mu.dtype, mu.device
         sigma = torch.sqrt(torch.as_tensor(doubled_variance, dtype=dtype,
                                            device=device))
@@ -281,7 +406,7 @@ class ParameterSet:
                 lambda eps: self.recast(mu + eps * sigma[None, :]),
                 self.valid_mask, u.to(dtype), max_retries, generator,
                 torch.broadcast_to(prior_means[None, :], mu.shape),
-            )
+            )[0]
         if method != "inverse_cdf":
             raise ValueError(f"unknown noise method {method!r}")
         bounds = [p.noise_support() + p.value_bounds() for p in self.params]
@@ -314,7 +439,9 @@ class ParameterSet:
         round's standard normals [n, P]; each later round draws from
         ``generator``, up to ``max_retries`` rounds in all (the reference
         loops forever); rows never accepted fall back to ``mu``. One host
-        read of the "all accepted" flag per round."""
+        read of the "all accepted" flag per round. Returns (x, rounds
+        drawn)."""
+        self._require_all_priors("noise")
         L = torch.as_tensor(chol_lower).to(mu)
         return self._reject(
             lambda e: self.recast(mu + e @ L.T),
@@ -329,13 +456,14 @@ class ParameterSet:
         eps = torch.randn(mu.shape, generator=generator, device=mu.device,
                           dtype=mu.dtype)
         return self.noise_multivariate(mu, chol_lower, eps, max_retries,
-                                       generator)
+                                       generator)[0]
 
     @staticmethod
     def _reject(propose, accept, eps, max_retries, generator, fallback):
         """The bounded rejection loop shared by both noise kinds: keep the
         first accepted proposal per cell (or row, where ``accept`` returns
-        [n, 1]); ``fallback`` where none was accepted."""
+        [n, 1]); ``fallback`` where none was accepted. Returns (values,
+        rounds drawn)."""
         vals = propose(eps)
         accepted = accept(vals)
         attempts = 1
@@ -351,7 +479,7 @@ class ParameterSet:
             vals = torch.where(~accepted & ok, prop, vals)
             accepted = accepted | ok
             attempts += 1
-        return torch.where(accepted, vals, fallback)
+        return torch.where(accepted, vals, fallback), attempts
 
 
 def truncated_normal_from_uniform(u, a, b):

@@ -140,12 +140,22 @@ def test_transform_matches_jax():
 
 
 def test_projection_parameters_not_yet_ported():
+    """PSEUDO parameters are ported (the test keeps its earlier name): they
+    build, enumerate as in JAX, and raise where the reference aborts."""
+    from abcsmc_tpu_torch.errors import ConfigError
+
     params = [{"name": "ps", "dist_type": "PSEUDO", "num_type": "INT",
                "par1": 1, "par2": 3, "step": 1}]
     raw = {"smc_iterations": 1, "num_samples": 3, "parameters": params,
            "metrics": METRICS}
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ParameterSet.from_specs(parse_config(raw).parameters)
+    ps = ParameterSet.from_specs(parse_config(raw).parameters)
+    jps = JParameterSet.from_specs(j_parse(raw).parameters)
+    assert ps.pseudo_idx == jps.pseudo_idx == [0]
+    assert ps.params[0].values == jps.params[0].values == (1.0, 2.0, 3.0)
+    np.testing.assert_array_equal(ps.indexed_grid_values(5)[0],
+                                  jps.indexed_grid_values(5)[0])
+    with pytest.raises(ConfigError, match="likelihood"):
+        ps.prior_log_pdf(torch.zeros((2, 1)))
 
 
 # -------------------------------------------------------------- simulators
@@ -221,8 +231,13 @@ def test_resolve_simulator_ported_and_not_ported():
             "metrics": METRICS * 2}
     cfg = parse_config({**base, "simulator": "gaussian"})
     assert isinstance(sim.resolve_simulator(cfg), sim.DeviceSimulator)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        sim.resolve_simulator(parse_config({**base, "simulator": "sir"}))
+    # every builtin of the JAX package resolves; an unknown name raises as
+    # it does there
+    assert set(sim.BUILTIN_SIMULATORS) == set(jsim.BUILTIN_SIMULATORS)
+    sir = sim.resolve_simulator(parse_config({**base, "simulator": "sir"}))
+    assert isinstance(sir, sim.DeviceSimulator) and sir.nmet == 6
+    with pytest.raises(SimulatorError, match="unknown builtin"):
+        sim.resolve_simulator(parse_config({**base, "simulator": "nope"}))
     assert isinstance(sim.resolve_simulator(parse_config(
         {**base, "executable": "x"})), sim.ExecSimulator)
     assert sim.resolve_simulator(parse_config(base)) is None

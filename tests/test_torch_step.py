@@ -10,7 +10,16 @@ equal; distances, weights and doubled variance rtol 1e-8 (Gram, PLS and
 logsumexp reductions run in another order); next_params rtol 1e-10 (the
 same picks, then elementwise truncated-normal maps). The f32 hostile
 moment fixtures of tests/test_sharded.py keep their rtol 1e-3 against the
-f64 host rule."""
+f64 host rule.
+
+MULTIVARIATE noise: the first round's normals are JAX's
+(``normal(split(k_noise)[1])``); with ``max_retries=1`` both steps stop after
+that round and every row agrees to rtol 1e-8 (a rejected row falls back to
+its resampled survivor in both); with retries on, the rows the first round
+accepted agree and the others are valid draws. Box-Cox: same survivors,
+distances, weights and doubled variance to rtol 1e-8, and the chosen
+lambdas equal the JAX host rule's (``stats.optimize_box_cox`` per shifted
+column) exactly."""
 
 import jax
 import jax.numpy as jnp
@@ -18,14 +27,17 @@ import numpy as np
 import pytest
 import torch
 
-from abcsmc_tpu.config import FilterType as JFilterType, parse_config as j_parse
+from abcsmc_tpu.config import (
+    FilterType as JFilterType, NoiseType as JNoiseType, parse_config as j_parse,
+)
 from abcsmc_tpu.models.parameters import ParameterSet as JParameterSet
 from abcsmc_tpu.models.simulators import make_dice_simulator
 from abcsmc_tpu.models.transforms import ParameterTransform as JTransform
 from abcsmc_tpu.ops import pls as jpls
 from abcsmc_tpu.ops import ranking
+from abcsmc_tpu.ops import stats as jstats
 from abcsmc_tpu.parallel import ShardedGeneration, particle_mesh
-from abcsmc_tpu_torch.config import FilterType, parse_config
+from abcsmc_tpu_torch.config import FilterType, NoiseType, parse_config
 from abcsmc_tpu_torch.models.parameters import ParameterSet
 from abcsmc_tpu_torch.models.transforms import ParameterTransform
 from abcsmc_tpu_torch.parallel.generation import Generation, StepDraws
@@ -57,6 +69,9 @@ def _pair(obs, dtype_np, *, params=PARAMS, filter_type=None, **kw):
     if filter_type is not None:
         jkw["filter_type"] = getattr(JFilterType, filter_type)
         tkw["filter_type"] = getattr(FilterType, filter_type)
+    if "noise_type" in kw:
+        jkw["noise_type"] = getattr(JNoiseType, kw["noise_type"])
+        tkw["noise_type"] = getattr(NoiseType, kw["noise_type"])
     jgen = ShardedGeneration(
         JParameterSet.from_specs(jcfg.parameters),
         JTransform(jcfg.parameters), make_dice_simulator(max_dice=4), obs,
@@ -85,21 +100,26 @@ def jax_draws(jgen, key, n_next) -> StepDraws:
         pick = jax.random.uniform(k_pick, (n_next,), dt)
     noise_u = jax.random.uniform(k_noise, (n_next, jgen.par_set.npar), dt)
     seeds = jax.random.randint(k_seed, (n_next,), 0, np.iinfo(np.int32).max)
+    # the first round of the MULTIVARIATE rejection loop
+    noise_eps = jax.random.normal(jax.random.split(k_noise)[1],
+                                  (n_next, jgen.par_set.npar), dt)
     return StepDraws(
         vdv_seed=torch.tensor(int(jpls.vdv_seed(key)), dtype=torch.int64),
         pick=torch.as_tensor(np.array(pick)),
         noise_u=torch.as_tensor(np.array(noise_u)),
         next_seeds=torch.as_tensor(np.array(seeds, np.int64)),
+        noise_eps=torch.as_tensor(np.array(noise_eps)),
+        retry_generator=torch.Generator().manual_seed(99),
     )
 
 
-def _data(seed=11):
+def _data(seed=11, truth=(0.3, 0.6, 8.0)):
     rng = np.random.default_rng(seed)
     params = np.stack([rng.uniform(0, 1, N), rng.uniform(0, 1, N),
                        rng.integers(1, 21, N).astype(np.float64)], axis=1)
     mix = rng.normal(size=(NPAR, NMET)) * np.array([[1.0], [1.0], [0.1]])
     mets = params @ mix + 0.4 * rng.normal(size=(N, NMET))
-    obs = np.array([0.3, 0.6, 8.0]) @ mix
+    obs = np.array(truth) @ mix
     prev = (
         np.stack([rng.uniform(0.1, 0.9, KEEP), rng.uniform(0.1, 0.9, KEEP),
                   rng.integers(2, 19, KEEP).astype(np.float64)], axis=1),
@@ -150,6 +170,201 @@ def test_step_matches_jax_step(method, first, sorted_pick, optimal):
                                np.asarray(jres.next_params), rtol=1e-10)
     np.testing.assert_array_equal(res.next_seeds.numpy(),
                                   np.asarray(jres.next_seeds, np.int64))
+
+
+def _assert_rank_and_weights_equal(res, jres):
+    np.testing.assert_array_equal(res.survivor_idx.numpy(),
+                                  np.asarray(jres.survivor_idx))
+    assert int(res.ncomp_used) == int(jres.ncomp_used) > 0
+    np.testing.assert_allclose(res.distances.numpy(),
+                               np.asarray(jres.distances), rtol=1e-8)
+    np.testing.assert_allclose(res.weights.numpy(), np.asarray(jres.weights),
+                               rtol=1e-8)
+    np.testing.assert_allclose(res.doubled_variance.numpy(),
+                               np.asarray(jres.doubled_variance), rtol=1e-8)
+
+
+@pytest.mark.parametrize("method", ["multinomial", "systematic"])
+def test_step_multivariate_matches_jax_step(method):
+    # a truth in a corner of the prior box: many proposals leave the support
+    params, mets, obs, prev = _data(truth=(0.02, 0.97, 19.0))
+    key = jax.random.PRNGKey(8)
+    n_next = 300
+    state = tuple(jnp.asarray(x) for x in prev)
+    tstate = tuple(torch.as_tensor(x) for x in prev)
+
+    def both(max_retries):
+        jgen, gen = _pair(obs, np.float64, resample_method=method,
+                          noise_type="MULTIVARIATE", max_retries=max_retries)
+        jres = jgen.step_precomputed(key, jnp.asarray(params),
+                                     jnp.asarray(mets), KEEP, n_next, state)
+        res = gen.step_precomputed(torch.as_tensor(params),
+                                   torch.as_tensor(mets), KEEP, n_next,
+                                   jax_draws(jgen, key, n_next), tstate)
+        return gen, res, jres
+
+    # one round only: a rejected row falls back to its survivor in both
+    gen, one, jone = both(1)
+    _assert_rank_and_weights_equal(one, jone)
+    assert one.mvn_rounds == 1
+    np.testing.assert_allclose(one.next_params.numpy(),
+                               np.asarray(jone.next_params), rtol=1e-8)
+    np.testing.assert_array_equal(one.next_seeds.numpy(),
+                                  np.asarray(jone.next_seeds, np.int64))
+    # a row the first round rejected is its unperturbed survivor
+    surv = {tuple(r) for r in one.survivor_params.numpy()}
+    valid_first = np.array([tuple(r) not in surv
+                            for r in one.next_params.numpy()])
+    assert 0 < (~valid_first).sum() < n_next     # some rows need a retry
+
+    # retries on: the first round's rows stand, the rest are redrawn valid
+    gen, res, jres = both(1000)
+    assert 1 < res.mvn_rounds < 1000
+    got, want = res.next_params.numpy(), np.asarray(jres.next_params)
+    np.testing.assert_allclose(got[valid_first], want[valid_first], rtol=1e-8)
+    np.testing.assert_array_equal(got[valid_first],
+                                  one.next_params.numpy()[valid_first])
+    assert bool(gen.par_set.valid_mask(res.next_params).all())
+    assert bool(gen.par_set.valid_mask(torch.as_tensor(want)).all())
+
+
+def test_step_multivariate_collapsed_column_falls_back_like_jax():
+    """A survivor column with zero variance makes the covariance singular:
+    ``jnp.linalg.cholesky`` gives NaN, no proposal is ever valid, and after
+    ``max_retries`` rounds every row is its resampled survivor. The port's
+    ``cholesky_ex`` route ends the same way instead of raising."""
+    params, mets, obs, prev = _data()
+    params = params.copy()
+    params[:, 2] = 7.0                      # the INT column, collapsed
+    key = jax.random.PRNGKey(2)
+    jgen, gen = _pair(obs, np.float64, noise_type="MULTIVARIATE",
+                      max_retries=3)
+    jres = jgen.step_precomputed(key, jnp.asarray(params), jnp.asarray(mets),
+                                 KEEP, 120, None)
+    res = gen.step_precomputed(torch.as_tensor(params), torch.as_tensor(mets),
+                               KEEP, 120, jax_draws(jgen, key, 120), None)
+    np.testing.assert_array_equal(res.survivor_idx.numpy(),
+                                  np.asarray(jres.survivor_idx))
+    assert res.mvn_rounds == 3
+    assert np.isfinite(res.next_params.numpy()).all()
+    np.testing.assert_array_equal(res.next_params.numpy(),
+                                  np.asarray(jres.next_params))
+    surv = {tuple(r) for r in res.survivor_params.numpy()}
+    assert all(tuple(r) in surv for r in res.next_params.numpy())
+
+
+def _skewed_data(seed=4):
+    """Positive, right-skewed metrics (exp of a normal) whose log is linear
+    in the parameters, plus one column with a non-positive minimum."""
+    params, mets, obs, prev = _data(seed)
+    mets = np.exp(0.6 * mets)
+    obs = np.exp(0.6 * obs)
+    mets[:, 3] = mets[:, 3] - 2.5
+    obs[3] = obs[3] - 2.5
+    assert mets[:, 3].min() < 0 < mets[:, :3].min()
+    return params, mets, obs, prev
+
+
+@pytest.mark.parametrize("first", [False, True])
+def test_step_box_cox_matches_jax_step(first):
+    params, mets, obs, prev = _skewed_data()
+    jgen, gen = _pair(obs, np.float64, box_cox=True)
+    key = jax.random.PRNGKey(6)
+    n_next = 200
+    jres = jgen.step_precomputed(
+        key, jnp.asarray(params), jnp.asarray(mets), KEEP, n_next,
+        None if first else tuple(jnp.asarray(x) for x in prev))
+    res = gen.step_precomputed(
+        torch.as_tensor(params), torch.as_tensor(mets), KEEP, n_next,
+        jax_draws(jgen, key, n_next),
+        None if first else tuple(torch.as_tensor(x) for x in prev))
+    _assert_rank_and_weights_equal(res, jres)
+    np.testing.assert_allclose(res.next_params.numpy(),
+                               np.asarray(jres.next_params), rtol=1e-10)
+    # stored and survivor metrics stay raw
+    np.testing.assert_array_equal(res.metrics.numpy(), mets)
+    np.testing.assert_array_equal(res.survivor_metrics.numpy(),
+                                  mets[res.survivor_idx.numpy()])
+    # the lambdas of the host rule, column by column
+    want = []
+    for j in range(NMET):
+        mn = min(mets[:, j].min(), obs[j])
+        shift = 1e-6 - mn if mn <= 0 else 0.0
+        want.append(float(jstats.optimize_box_cox(
+            jnp.asarray(mets[:, j] + shift))))
+    np.testing.assert_array_equal(res.box_cox_lambdas.numpy(),
+                                  np.array(want))
+    assert np.abs(np.array(want) - 1.0).min() > 0.2   # away from identity
+    # and it changes the ranking: not the plain step's survivors
+    _, plain = _pair(obs, np.float64)
+    pres = plain.step_precomputed(
+        torch.as_tensor(params), torch.as_tensor(mets), KEEP, 0,
+        jax_draws(jgen, key, 0),
+        None if first else tuple(torch.as_tensor(x) for x in prev))
+    assert pres.box_cox_lambdas is None
+    assert set(pres.survivor_idx.tolist()) != set(res.survivor_idx.tolist())
+
+
+def test_step_box_cox_masks_padding_and_skips_simple_filter():
+    """Padding rows (even non-positive ones) reach neither the shift nor
+    the moments; with the SIMPLE filter Box-Cox is off, as in JAX."""
+    params, mets, obs, prev = _skewed_data()
+    _, gen = _pair(obs, np.float64, box_cox=True)
+    draws = StepDraws(torch.tensor(3), torch.rand(0, dtype=torch.float64),
+                      torch.rand(0, NPAR, dtype=torch.float64),
+                      torch.zeros(0, dtype=torch.int64))
+    state = tuple(torch.as_tensor(x) for x in prev)
+    ref = gen.step_precomputed(torch.as_tensor(params), torch.as_tensor(mets),
+                               KEEP, 0, draws, state)
+    pp = np.concatenate([params, params[:5]])
+    pm = np.concatenate([mets, -50.0 - mets[:5]])
+    got = gen.step_precomputed(torch.as_tensor(pp), torch.as_tensor(pm),
+                               KEEP, 0, draws, state, n_valid=N)
+    np.testing.assert_array_equal(got.box_cox_lambdas.numpy(),
+                                  ref.box_cox_lambdas.numpy())
+    np.testing.assert_array_equal(got.survivor_idx.numpy(),
+                                  ref.survivor_idx.numpy())
+    np.testing.assert_allclose(got.distances[:N].numpy(),
+                               ref.distances.numpy(), rtol=1e-10)
+    jgen, simple = _pair(obs, np.float64, box_cox=True, filter_type="SIMPLE")
+    sres = simple.step_precomputed(torch.as_tensor(params),
+                                   torch.as_tensor(mets), KEEP, 0, draws,
+                                   state)
+    jres = jgen.step_precomputed(jax.random.PRNGKey(0), jnp.asarray(params),
+                                 jnp.asarray(mets), KEEP, 0,
+                                 tuple(jnp.asarray(x) for x in prev))
+    assert sres.box_cox_lambdas is None
+    np.testing.assert_array_equal(sres.survivor_idx.numpy(),
+                                  np.asarray(jres.survivor_idx))
+
+
+def test_generation_takes_the_config_keys_and_refuses_projection():
+    """noise_type, max_retries, box_cox and weight_precision are
+    constructor arguments, as in the JAX step; PSEUDO parameters raise
+    ValueError there too."""
+    params, mets, obs, prev = _data()
+    _, gen = _pair(obs, np.float64, noise_type="MULTIVARIATE", max_retries=7,
+                   box_cox=True, weight_precision="highest")
+    assert gen.noise_type == NoiseType.MULTIVARIATE
+    assert (gen.max_retries, gen.box_cox) == (7, True)
+    assert gen.weight_precision == "highest"
+    d = gen.draw_step(torch.Generator().manual_seed(0), 10)
+    assert d.noise_u is None and d.noise_eps.shape == (10, NPAR)
+    assert d.retry_generator is not None
+    pseudo = [{"name": "g", "dist_type": "PSEUDO", "num_type": "INT",
+               "par1": 0, "par2": 3}]
+    raw = {"parameters": pseudo,
+           "metrics": [{"name": "m", "num_type": "FLOAT", "value": 0.0}]}
+    jcfg, cfg = j_parse(raw), parse_config(raw)
+    with pytest.raises(ValueError, match="fitting mode"):
+        ShardedGeneration(
+            JParameterSet.from_specs(jcfg.parameters),
+            JTransform(jcfg.parameters), make_dice_simulator(), [0.0],
+            mesh=particle_mesh(jax.devices()[:1]))
+    with pytest.raises(ValueError, match="fitting mode"):
+        Generation(ParameterSet.from_specs(cfg.parameters),
+                   ParameterTransform(cfg.parameters), None, [0.0],
+                   device="cpu")
 
 
 def test_final_set_proposes_nothing():
