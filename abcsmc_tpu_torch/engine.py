@@ -20,16 +20,17 @@ Two ways to run, as in the JAX package:
 
 One process: the JAX package's multi-process gating (``_store_writer``,
 ``_mesh_sync``, ``_writer_guard``, ``_broadcast_flag``) collapses to the
-single-process case. Not yet ported, each raising ``NotImplementedError``
-where it is reached: the fused ``run_scan``/``run_chain`` dispatch, inside
-the device step chunked row passes, split propose and two-stage top-K, and
-the ``checkpoint``/``ess``/``posterior_predictive``/``posterior_summary``
-surfaces.
+single-process case. Every config key and every ``AbcSmc`` method of the
+JAX package runs here on one GPU; ``topk_two_stage`` and
+``weight_precision`` are accepted and change nothing on one device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
+import sqlite3
 import sys
 import time
 
@@ -50,11 +51,15 @@ from abcsmc_tpu_torch.parallel.generation import _SEED_HIGH, Generation
 from abcsmc_tpu_torch.storage import MemoryStorage, SQLiteStorage, Storage
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not yet ported to abcsmc_tpu_torch; use the JAX package "
-        "abcsmc_tpu for it"
-    )
+#: full-history bytes up to which ``device_dispatch: "auto"`` may take the
+#: fused route (the stacked populations live on the device until the mirror)
+_FUSED_HISTORY_BYTES = 256 * 2**20
+#: replayed sets from which ``device_dispatch: "auto"`` takes the fused
+#: route: a capture costs about two eager sets and the stacked history a
+#: little more to fetch, so a run must replay a few sets to come out ahead
+_AUTO_MIN_REPLAYS = 4
+#: rows from which the mirror announces the size of its store write
+_MIRROR_NOTICE_ROWS = 1 << 24
 
 
 def _host(x) -> np.ndarray:
@@ -142,6 +147,48 @@ class AbcSmc:
         self._predictive_prior: list[np.ndarray] = []
         self._weights: list[np.ndarray] = []
         self._doubled_variance: list[np.ndarray] = []
+
+    @classmethod
+    def direct(
+        cls,
+        parameters: list[dict],
+        metrics: list[dict],
+        num_samples,
+        smc_iterations: int | None = None,
+        predictive_prior_fraction=None,
+        predictive_prior_size=None,
+        pls_training_fraction: float = 0.5,
+        noise: str = "INDEPENDENT",
+        database_filename: str = "",
+        simulator: Simulator | None = None,
+        storage: Storage | None = None,
+        device="cuda",
+        dtype=torch.float32,
+        **extra,
+    ) -> "AbcSmc":
+        """Programmatic construction without a config file, the reference's
+        'direct' example surface (examples/direct/main.cpp:
+        add_next_parameter / add_next_metric / set_smc_iterations /
+        set_num_samples / ...). ``parameters`` and ``metrics`` take the
+        same dicts as the JSON schema; ``extra`` any other config key."""
+        cfg: dict = {
+            "parameters": parameters,
+            "metrics": metrics,
+            "num_samples": num_samples,
+            "pls_training_fraction": pls_training_fraction,
+            "noise": noise,
+            **extra,
+        }
+        if smc_iterations is not None:
+            cfg["smc_iterations"] = smc_iterations
+        if predictive_prior_fraction is not None:
+            cfg["predictive_prior_fraction"] = predictive_prior_fraction
+        if predictive_prior_size is not None:
+            cfg["predictive_prior_size"] = predictive_prior_size
+        if database_filename:
+            cfg["database_filename"] = database_filename
+        return cls(cfg, device=device, dtype=dtype, simulator=simulator,
+                   storage=storage)
 
     @property
     def npar(self) -> int:
@@ -497,17 +544,6 @@ class AbcSmc:
         return self
 
     # --------------------------------------------------------- device path
-    def _check_slice(self):
-        cfg = self.config
-        if cfg.row_block:
-            raise _not_ported("chunked row passes (row_block)")
-        if cfg.propose_split:
-            raise _not_ported("split propose (propose_split)")
-        if cfg.topk_two_stage:
-            raise _not_ported("two-stage top-K (topk_two_stage)")
-        if cfg.device_dispatch == "fused":
-            raise _not_ported("fused dispatch (run_scan / run_chain)")
-
     def _resume_point(self, seed: int, verbose: bool):
         """Rebuild the state of the sets the store already holds
         (src/AbcSmc.cpp:452-479, completeness gating at :571-592). Returns
@@ -548,18 +584,47 @@ class AbcSmc:
                 self._ingest_complete_set(g, t)
         return "device", gens[-1]
 
-    def run_device(self, seed: int = 0, verbose: bool = False):
+    def run_device(self, seed: int = 0, verbose: bool = False,
+                   mirror_store: bool = True):
         """SMC on ``self.device``: one generation step per set
         (:class:`abcsmc_tpu_torch.parallel.generation.Generation`), every
         draw from one ``torch.Generator`` seeded with ``seed``. The sets stay
         on the device until the end; then each is fetched once and mirrored
         into the run store, and the reports are printed.
+        ``mirror_store=False`` skips every store write: the posterior state
+        in memory, the reports and the surfaces built on them
+        (:meth:`posterior`, :meth:`ess`, :meth:`posterior_summary`,
+        :meth:`posterior_predictive`) are all a run then leaves.
 
         An existing store resumes where it stopped. At a set boundary the
         brain (:meth:`process_database`) enqueues the next set first;
         mid-set, the rows already 'D' keep their stored metrics and only the
         others are simulated, on the device, from their stored seeds. A
-        host-only simulator runs the host engine (:meth:`run`) instead."""
+        host-only simulator runs the host engine (:meth:`run`) instead.
+
+        Routes (config ``device_dispatch``). ``"sequential"``: one eager
+        step per set. ``"fused"``: a fresh run goes through
+        ``Generation.run_scan`` (one ``(n, keep)``) or ``run_chain``
+        (varying sizes): where the step is capturable (a CUDA device,
+        INDEPENDENT noise) each same-shape bucket replays one CUDA graph
+        of the step per set; a MULTIVARIATE step reads a flag from the
+        device per rejection round and cannot be captured, so its chain
+        runs eagerly (said under ``verbose``, and every set's route is in
+        ``timings``). Every set is computed, and an ``nrmse_tolerance``
+        cuts the mirror at the first converged set afterwards: the stored
+        rows are the sequential run's. ``"auto"`` takes the fused route
+        only where at least 4 sets would replay a graph and the full
+        history (every set's population, stacked on the device) stays
+        under 256 MiB, and is sequential otherwise: PERF.md, section 6
+        ("fused dispatch"), has the readings on an NVIDIA H100 behind that
+        rule (stored rows equal on both routes; with 4 replays the wall
+        was shorter or within 5 %, with 3 inside the spread of two
+        sequential runs). A resumed run, and a
+        run in which any set proposes apart from its ranking
+        (``propose_split``, or its auto rule at sizes near the card's
+        memory), is sequential: such a set is ranked, fetched and freed
+        before its proposal is made (rank -> fetch -> free -> propose).
+        ``row_block`` chunks the row passes on every route."""
         if not isinstance(self.simulator, DeviceSimulator):
             if verbose:
                 sys.stderr.write(
@@ -571,7 +636,6 @@ class AbcSmc:
         if (cfg.projection_mode or self.par_set.pseudo_idx
                 or self.par_set.posterior_idx):
             return self._run_device_projection(seed, verbose)
-        self._check_slice()
         self._reset_state()
         kind, pending = self._resume_point(seed, verbose)
         if kind == "done":
@@ -590,15 +654,117 @@ class AbcSmc:
             resample_method=cfg.resample_method,
             box_cox=cfg.box_cox,
             weight_precision=cfg.weight_precision,
+            row_block=cfg.row_block,
+            propose_split=cfg.propose_split,
+            topk_two_stage=cfg.topk_two_stage,
         )
         generator = torch.Generator(device=self.device)
         generator.manual_seed(int(seed) & 0xFFFFFFFFFFFFFFFF)
-        on_cuda = self.device.type == "cuda"
+
+        # ---- the route ----
+        n_sets = cfg.num_smc_sets
+        sizes = [cfg.smc_size_at(t) for t in range(n_sets)]
+        keeps = [cfg.pred_prior_size_at(t) for t in range(n_sets)]
+        item = torch.empty((), dtype=self.dtype).element_size()
+        hist_bytes = sum(n_t * ((self.npar + self.nmet) * item + 8)
+                         for n_t in sizes)
+        any_split = any(
+            gen.split_propose_active(sizes[t],
+                                     sizes[t + 1] if t + 1 < n_sets else 0)
+            for t in range(n_sets)
+        )
+        fused_ok = (
+            pending is None and t_first == 0
+            and (cfg.device_dispatch == "fused"
+                 or (cfg.device_dispatch == "auto"
+                     and hist_bytes <= _FUSED_HISTORY_BYTES
+                     and gen.planned_replays(sizes, keeps)
+                     >= _AUTO_MIN_REPLAYS))
+            and not any_split
+        )
+        use_scan = fused_ok and len(set(sizes)) == 1 and len(set(keeps)) == 1
+        route = ("scan" if use_scan else "chain" if fused_ok
+                 else "sequential")
+        if verbose and fused_ok:
+            sys.stderr.write(
+                f"run_device: fused dispatch ({route}): "
+                + ("same-shape sets replay one CUDA graph of the step\n"
+                   if gen.capturable else
+                   "the step is not capturable ("
+                   + ("MULTIVARIATE noise reads a flag per rejection round"
+                      if self.device.type == "cuda" else "no CUDA device")
+                   + "), running the eager chain\n"))
 
         t_dispatch0 = time.perf_counter()
+        pending_serials = None
+        if not fused_ok:
+            fetched, info, pending_serials = self._run_sequential(
+                gen, generator, pending, t_first, sizes, keeps)
+        else:
+            if use_scan:
+                _, hist = gen.run_scan(generator, sizes[0], keeps[0], n_sets,
+                                       full_history=True)
+                entries = [("bucket", n_sets, hist)]
+            else:
+                _, entries = gen.run_chain(generator, sizes, keeps,
+                                           full_history=True,
+                                           bucketed_history=True)
+            fetched, info = None, gen.set_info
+        t_dispatch = time.perf_counter() - t_dispatch0
+
+        # ---- fetch every set once, then mirror into the run store ----
+        t_mirror0 = time.perf_counter()
+        if fetched is None:
+            fetched = self._fetch_history(entries, t_first)
+            del entries
+        else:
+            fetched = [
+                tuple(x if isinstance(x, np.ndarray)
+                      else x.detach().cpu().numpy() for x in tup)
+                for tup in fetched
+            ]
+        self._mirror_fetched_sets(fetched, t_first, pending_serials,
+                                  mirror_store)
+        # the mirror appended one "device_generation" entry per set, in order
+        for entry, inf in zip(self.timings[-len(fetched):], info):
+            ev, sim = inf["events"], inf["sim_events"]
+            entry["route"] = inf["route"]
+            entry["device_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
+            entry["simulate_ms"] = sim[0].elapsed_time(sim[1]) if sim else None
+            # rounds of the MULTIVARIATE rejection loop: each one read a
+            # flag from the device in the middle of the step
+            entry["mvn_rounds"] = inf["mvn_rounds"]
+            if inf["box_cox_lambdas"] is not None:
+                entry["box_cox_lambdas"] = _host(
+                    inf["box_cox_lambdas"]).tolist()
+        self.timings.append({
+            "op": "run_device_phases", "sets": len(fetched),
+            "first_set": t_first, "route": route,
+            "dispatch_s": t_dispatch,
+            "mirror_s": time.perf_counter() - t_mirror0,
+            # what the host submitted: init, steps, proposals and graph
+            # replays (one per set on every route), and the graphs apart
+            "programs": gen.dispatches,
+            "graph_captures": gen.graph_captures,
+            "graph_replays": gen.graph_replays,
+            "capture_s": gen.capture_seconds,
+        })
+        reports.report_convergence_data(self, t_first + len(fetched) - 1)
+        return self
+
+    def _run_sequential(self, gen, generator, pending, t_first, sizes,
+                        keeps):
+        """One eager step per set from ``t_first`` on. Returns (per-set
+        tuples (params, seeds, metrics, survivor_idx, weights,
+        doubled_variance, ncomp_used): device tensors, or host arrays for
+        a split-propose set; per-set info as ``Generation.set_info``; the
+        serials of a resumed set's rows or None)."""
+        cfg = self.config
+        on_cuda = self.device.type == "cuda"
+        n_sets = len(sizes)
         pending_mets = pending_serials = None
         if pending is None:
-            params, seeds = gen.init_population(generator, cfg.smc_size_at(0))
+            params, seeds = gen.init_population(generator, sizes[0])
         else:
             params = self._tensor(pending.params)
             seeds = torch.as_tensor(
@@ -623,76 +789,111 @@ class AbcSmc:
                 self._tensor(self._doubled_variance[t_first - 1]),
             )
 
-        results, pops, marks = [], [], []
-        for t in range(t_first, cfg.num_smc_sets):
-            n_t = cfg.smc_size_at(t)
-            last = t + 1 >= cfg.num_smc_sets
-            n_next = 0 if last else cfg.smc_size_at(t + 1)
-            draws = gen.draw_step(generator, n_next)
+        tuples, info = [], []
+        for t in range(t_first, n_sets):
+            n_t = sizes[t]
+            n_next = sizes[t + 1] if t + 1 < n_sets else 0
+            # at sizes near the card's memory the caller's [N, P] / [N, M]
+            # buffers must be freed before the proposal's buffers exist:
+            # rank -> fetch -> free -> propose, which step() alone cannot do
+            split_t = gen.split_propose_active(n_t, n_next)
+            draws = (gen.draw_vdv_seed(generator) if split_t
+                     else gen.draw_step(generator, n_next))
+            eff_next = 0 if split_t else n_next
             ev = None
             if on_cuda:
                 ev = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
                 ev[0].record()
-            keep = cfg.pred_prior_size_at(t)
             if pending_mets is not None:
-                res = gen.step_precomputed(params, pending_mets, keep, n_next,
-                                           draws, state, n_valid=n_t)
+                res = gen.step_precomputed(params, pending_mets, keeps[t],
+                                           eff_next, draws, state,
+                                           n_valid=n_t)
                 pending_mets = None
             else:
-                res = gen.step(params, seeds, keep, n_next, draws, state,
-                               n_valid=n_t)
+                res = gen.step(params, seeds, keeps[t], eff_next, draws,
+                               state, n_valid=n_t)
             if on_cuda:
                 ev[1].record()
-            marks.append(ev)
             state = (res.survivor_params, res.weights, res.doubled_variance)
             converged = self._nrmse_converged(res.survivor_metrics, t)
-            pops.append((params, seeds, res.metrics))
-            results.append(res)
-            params, seeds = res.next_params, res.next_seeds
-            if converged:
-                break
-        t_dispatch = time.perf_counter() - t_dispatch0
+            inf = {"route": "eager", "events": ev,
+                   "sim_events": res.sim_events,
+                   "mvn_rounds": res.mvn_rounds,
+                   "box_cox_lambdas": res.box_cox_lambdas}
+            info.append(inf)
+            if split_t:
+                # the set's seven buffers at once, then its O(N) device
+                # buffers die before the [N2, P] proposal is made
+                tuples.append(tuple(
+                    x.detach().cpu().numpy() for x in (
+                        params, seeds, res.metrics, res.survivor_idx,
+                        res.weights, res.doubled_variance, res.ncomp_used)))
+                del params, seeds, res
+                if converged:
+                    break
+                draws = gen.draw_proposal(generator, n_next, draws)
+                params, seeds, inf["mvn_rounds"] = gen.propose(
+                    *state, n_next, draws)
+                del draws
+            else:
+                tuples.append((params, seeds, res.metrics, res.survivor_idx,
+                               res.weights, res.doubled_variance,
+                               res.ncomp_used))
+                params, seeds = res.next_params, res.next_seeds
+                if converged:
+                    break
+        return tuples, info, pending_serials
 
-        # ---- fetch every set once, then mirror into the run store ----
-        t_mirror0 = time.perf_counter()
-        fetched = [
-            tuple(x.detach().cpu().numpy() for x in (
-                pars_d, seeds_d, mets_d, res.survivor_idx, res.weights,
-                res.doubled_variance, res.ncomp_used,
-            ))
-            for res, (pars_d, seeds_d, mets_d) in zip(results, pops)
-        ]
-        self._mirror_fetched_sets(fetched, t_first, pending_serials)
-        # the mirror appended one "device_generation" entry per set, in order
-        for entry, ev, res in zip(self.timings[-len(marks):], marks, results):
-            entry["device_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
-            sim = res.sim_events
-            entry["simulate_ms"] = sim[0].elapsed_time(sim[1]) if sim else None
-            # rounds of the MULTIVARIATE rejection loop: each one read a
-            # flag from the device in the middle of the step
-            entry["mvn_rounds"] = res.mvn_rounds
-            if res.box_cox_lambdas is not None:
-                entry["box_cox_lambdas"] = _host(res.box_cox_lambdas).tolist()
-        self.timings.append({
-            "op": "run_device_phases", "sets": len(fetched),
-            "first_set": t_first, "dispatch_s": t_dispatch,
-            "mirror_s": time.perf_counter() - t_mirror0,
-        })
-        reports.report_convergence_data(self, t_first + len(fetched) - 1)
-        return self
+    def _fetch_history(self, entries, t_first: int):
+        """The fused routes' history (``("set", leaves)`` / ``("bucket", L,
+        stacked leaves)`` entries) as per-set host tuples. With an
+        ``nrmse_tolerance`` the small survivor-metric leaves are fetched
+        first and the history is cut at the first converged set, exactly
+        where the sequential loop stops: the O(N) leaves of the sets after
+        it are never fetched. A bucket is fetched whole (sliced on the
+        device once where the cut falls inside it) and split per set on
+        the host."""
+        cut = None
+        if self.config.nrmse_tolerance:
+            smets = []
+            for e in entries:
+                sm = _host(e[1][2] if e[0] == "set" else e[2][2])
+                smets.extend([sm] if e[0] == "set" else list(sm))
+            cut = len(smets)
+            for i, sm in enumerate(smets):
+                if self._nrmse_converged(sm, t_first + i):
+                    cut = i + 1
+                    break
+        fetched, s0 = [], 0
+        for e in entries:
+            blen, h = (1, e[1]) if e[0] == "set" else (e[1], e[2])
+            if cut is not None:
+                if s0 >= cut:
+                    break
+                blen = min(blen, cut - s0)
+            s0 += blen
+            tup = (h[6], h[7], h[8], h[0], h[3], h[4], h[5])
+            if e[0] == "set":
+                fetched.append(tuple(x.detach().cpu().numpy() for x in tup))
+                continue
+            host = tuple(x[:blen].detach().cpu().numpy() for x in tup)
+            fetched.extend(tuple(leaf[g] for leaf in host)
+                           for g in range(blen))
+        return fetched
 
     def _mirror_fetched_sets(self, fetched, t0: int = 0,
-                             pending_serials=None):
+                             pending_serials=None, mirror_store: bool = True):
         """Mirror the fetched per-set host tuples (sets t0, t0+1, ...) into
         the store and the in-memory posterior state, then print each set's
         filtering report. Set t0's rows already exist when
         ``pending_serials`` is given (a resume): their results are written
         back guarded (rows already 'D' keep their metrics), then their
         ranks. A negative ``ncomp_used`` (the step's U0 self-check) raises
-        before any store write for that set."""
+        before any store write for that set. ``mirror_store=False`` writes
+        nothing to the store and does the rest."""
         cfg = self.config
-        if not self.storage.exists():
+        if mirror_store and not self.storage.exists():
             self.storage.create(
                 self.par_set.short_names(),
                 [m.short_name for m in self.metrics],
@@ -718,14 +919,25 @@ class AbcSmc:
             surv = np.asarray(surv_h, np.int64)
             ranks = np.full(len(pars_np), -1, np.int64)
             ranks[surv] = np.arange(len(surv))
-            if i == 0 and pending_serials is not None:
+            if mirror_store and n_t >= _MIRROR_NOTICE_ROWS:
+                # say what the store write will cost instead of looking
+                # hung: the streamed insert is linear in the rows
+                vals_per_row = self.npar * (2 if self.transform.has_any
+                                            else 1) + self.nmet + 3
+                sys.stderr.write(
+                    f"mirroring set {t}: {n_t:,} rows into the durable "
+                    f"store (~{n_t * 10e-6:.0f} s, "
+                    f"~{n_t * vals_per_row * 15 / 2**30:.1f} GB on disk; "
+                    "pass mirror_store=False to run without durability)\n"
+                )
+            if mirror_store and i == 0 and pending_serials is not None:
                 n_rows = len(pending_serials)
                 self.storage.write_results(
                     pending_serials, mets_np,
                     np.full(n_rows, int(time.time())), np.zeros(n_rows),
                 )
                 self.storage.write_posterior_ranks(pending_serials, ranks)
-            else:
+            elif mirror_store:
                 upars = (
                     self.transform.to_model_space(
                         torch.as_tensor(pars_np)).numpy()
@@ -785,15 +997,94 @@ class AbcSmc:
             self._weights[set_num],
         )
 
-    # ----------------------------------------- not yet ported: the surfaces
-    def checkpoint(self, *args, **kwargs):
-        raise _not_ported("checkpoint")
+    # ------------------------------------------------------------ surfaces
+    def checkpoint(self, path, stamp: bool = True) -> dict:
+        """Write the run store to a reference-schema SQLite file and stamp
+        it. An in-memory store is snapshotted; a SQLite store is copied
+        through the sqlite3 online-backup API (safe against concurrent
+        writers) or, when ``path`` is the live database itself, left in
+        place (the database already is the checkpoint,
+        src/AbcSmc.cpp:452-479). With ``stamp`` a CRC-32 integrity stamp
+        (:func:`abcsmc_tpu_torch.crc32.database_crc`) is written beside the
+        file as ``<path>.crc.json``, so that a copy shipped between
+        filesystems can be verified on arrival
+        (:func:`abcsmc_tpu_torch.crc32.verify_checkpoint`). Returns the
+        stamp dict (empty when ``stamp=False``)."""
+        from abcsmc_tpu_torch import crc32
 
-    def ess(self, *args, **kwargs):
-        raise _not_ported("ess")
+        path = os.fspath(path)
+        if isinstance(self.storage, MemoryStorage):
+            target = SQLiteStorage(path)
+            self.storage.snapshot_to(target)
+            target.close()
+        elif isinstance(self.storage, SQLiteStorage) and (
+            os.path.abspath(path) != os.path.abspath(self.storage.path)
+        ):
+            # closing: sqlite3's own context manager only commits
+            with contextlib.closing(
+                sqlite3.connect(self.storage.path)
+            ) as src, contextlib.closing(sqlite3.connect(path)) as dst:
+                src.backup(dst)
+        if not stamp:
+            return {}
+        info = crc32.database_crc(path)
+        with open(path + ".crc.json", "w") as fh:
+            json.dump(info, fh)
+        return info
 
-    def posterior_predictive(self, *args, **kwargs):
-        raise _not_ported("posterior_predictive")
+    def ess(self, set_num: int = -1) -> float:
+        """Effective sample size of a generation's importance weights,
+        (sum w)^2 / sum w^2."""
+        if set_num == -1:
+            set_num = len(self._weights) - 1
+        w = self._weights[set_num]
+        return float(w.sum() ** 2 / (w**2).sum())
 
-    def posterior_summary(self, *args, **kwargs):
-        raise _not_ported("posterior_summary")
+    def posterior_predictive(self, n: int = 100, seed: int = 0,
+                             set_num: int = -1) -> np.ndarray:
+        """Posterior-predictive metric draws [n, M]: resample ``n``
+        posterior particles by weight, rerun the simulator with fresh
+        seeds. The pick's uniforms and the seeds come from a generator on
+        the engine's device, and a device simulator runs there in the
+        engine's dtype. Compare to ``self.obs`` for model criticism."""
+        if self.simulator is None:
+            raise SimulatorError("simulator not set", code=-211)
+        pars, w = self.posterior(set_num)
+        gen = self._generator(seed)
+        method = self.config.resample_method
+        u = resample.draw_pick_uniforms(gen, n, method, self.dtype)
+        idx = resample.resample_indices(self._tensor(w), n, u,
+                                        method).cpu().numpy()
+        upars = _host(self.transform.to_model_space(
+            torch.as_tensor(pars[idx])))
+        seeds = self._draw_seeds(gen, n)
+        return self.simulator.run_batch(upars, seeds, np.arange(n),
+                                        device=self.device, dtype=self.dtype)
+
+    def posterior_summary(
+        self, set_num: int = -1,
+        quantiles: tuple[float, ...] = (0.025, 0.25, 0.5, 0.75, 0.975),
+    ) -> dict:
+        """Weighted posterior summary per parameter: mean, sd and weighted
+        quantiles (inverse CDF over the weight distribution)."""
+        pars, w = self.posterior(set_num)
+        w = np.asarray(w, np.float64)
+        w = w / w.sum()
+        ess = self.ess(set_num)
+        out = {}
+        for j, p in enumerate(self.par_set.params):
+            x = pars[:, j]
+            mean = float((x * w).sum())
+            var = float(((x - mean) ** 2 * w).sum())
+            order = np.argsort(x)
+            cw = np.cumsum(w[order])
+            qs = {
+                q: float(x[order][np.searchsorted(cw, q, side="left").clip(
+                    0, len(x) - 1)])
+                for q in quantiles
+            }
+            out[p.short_name] = {
+                "mean": mean, "sd": float(np.sqrt(var)), "quantiles": qs,
+                "ess": ess,
+            }
+        return out

@@ -21,6 +21,7 @@ odometer order; asking them for a density, a recast or noise raises.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Sequence
@@ -32,6 +33,13 @@ from abcsmc_tpu_torch.config import DistType, NumType, ParameterSpec
 from abcsmc_tpu_torch.errors import ConfigError
 
 _LOG_2PI = math.log(2.0 * math.pi)
+
+
+@functools.lru_cache(maxsize=256)
+def _const(values: tuple, dtype, device):
+    """A small constant tensor, copied to ``device`` once: a step that is
+    captured into a CUDA graph must not copy host values to the device."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 class Parameter:
@@ -369,7 +377,8 @@ class ParameterSet:
         """Round INT columns to integers (half to even, as jnp.round)."""
         if not self._int_cols.any():
             return theta
-        mask = torch.as_tensor(self._int_cols, device=theta.device)
+        mask = _const(tuple(self._int_cols.tolist()), torch.bool,
+                      theta.device)
         return torch.where(mask[None, :], torch.round(theta), theta)
 
     def valid_mask(self, theta):
@@ -411,8 +420,7 @@ class ParameterSet:
             raise ValueError(f"unknown noise method {method!r}")
         bounds = [p.noise_support() + p.value_bounds() for p in self.params]
         lo, hi, vlo, vhi = (
-            torch.tensor(col, dtype=dtype, device=device)
-            for col in zip(*bounds)
+            _const(col, dtype, device) for col in zip(*bounds)
         )
         live = sigma > 0
         safe_sigma = torch.where(live, sigma, torch.ones_like(sigma))
@@ -488,7 +496,7 @@ def truncated_normal_from_uniform(u, a, b):
     (uniform on [erf(a/sqrt2), erf(b/sqrt2)), erfinv, clamp to
     [nextafter(a, +inf), nextafter(b, -inf)])."""
     dtype = u.dtype
-    sqrt2 = torch.tensor(math.sqrt(2.0), dtype=dtype, device=u.device)
+    sqrt2 = math.sqrt(2.0)
     a = a.to(dtype)
     b = b.to(dtype)
     lo = torch.erf(a / sqrt2)

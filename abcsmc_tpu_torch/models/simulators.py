@@ -416,6 +416,35 @@ def _first_reaching_half(series, total):
     return (torch.cumsum(series, dim=0) < (total / 2)[None, :]).sum(dim=0)
 
 
+def _tree_sum(x):
+    """Sum over the last axis by a fixed binary tree of elementwise adds
+    (zero-padded to a power of two, then halved until one column is left).
+    An elementwise add rounds each cell by itself, so a row's sum does not
+    depend on how many other rows share the batch: a particle replayed
+    from its stored seed in another batch gives the same bits. A library
+    row reduction picks its order from the whole shape."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while width > 1:
+        width //= 2
+        x = x[..., :width] + x[..., width:]
+    return x[..., 0]
+
+
+def _tree_cumsum(x):
+    """Running sum over the last axis by log2(n) shifted elementwise adds
+    (Hillis-Steele): like :func:`_tree_sum`, the same bits for a row
+    whatever the batch around it."""
+    n = x.shape[-1]
+    shift = 1
+    while shift < n:
+        x = x + torch.nn.functional.pad(x[..., :-shift], (shift, 0))
+        shift *= 2
+    return x
+
+
 def _row_quantiles(x, qs: Sequence[float]):
     """Quantiles [N, len(qs)] of each row of ``x`` [N, n]: position
     (n - 1) q with linear interpolation, as ``jnp.quantile`` (one sort of
@@ -569,8 +598,9 @@ def make_lotka_volterra_simulator(t_steps: int = 320, dt: float = 0.1,
     def core(params, noise):
         dtype, dev, n = params.dtype, params.device, params.shape[0]
         a, b = params[:, 0], params[:, 1]
-        diffusion = (torch.tensor(0.05, dtype=dtype, device=dev)
-                     * torch.sqrt(torch.tensor(dt, dtype=dtype, device=dev)))
+        # 0.05 * sqrt(dt) rounded as two operations in the working dtype
+        diffusion = float(torch.tensor(0.05, dtype=dtype)
+                          * torch.sqrt(torch.tensor(dt, dtype=dtype)))
         x = torch.full((n,), x0, dtype=dtype, device=dev)
         y = torch.full((n,), y0, dtype=dtype, device=dev)
         xs, ys = [], []
@@ -631,8 +661,8 @@ def make_ricker_simulator(t_steps: int = 100, n0: float = 1.0,
             return torch.where(lam > 10.0, large, small)
 
         pop = torch.full((n,), n0, dtype=dt, device=dev)
-        # particle-major, so that each statistic reduces a row of its own
-        # in the same order whatever the batch
+        # particle-major; each statistic is a fixed tree of elementwise adds
+        # over a row (_tree_sum), the same bits whatever the batch
         ys = torch.empty((n, t_steps), dtype=dt, device=dev)
         for t in range(t_steps + burn_in):
             z = noise.normals(2)
@@ -641,14 +671,14 @@ def make_ricker_simulator(t_steps: int = 100, n0: float = 1.0,
                               1e-9, 1e6)
             if t >= burn_in:
                 ys[:, t - burn_in] = poisson(phi * pop, u, z[:, 1])
-        m = ys.mean(dim=1)
+        m = _tree_sum(ys) / t_steps
         yc = ys - m[:, None]
-        ss = (yc * yc).sum(dim=1)
+        ss = _tree_sum(yc * yc)
         sd = torch.sqrt(torch.clamp_min(ss / (t_steps - 1), 0.0))
         denom = torch.clamp_min(ss, 1e-9)
-        ac1 = (yc[:, 1:] * yc[:, :-1]).sum(dim=1) / denom
-        ac2 = (yc[:, 2:] * yc[:, :-2]).sum(dim=1) / denom
-        zeros = (ys == 0).to(dt).sum(dim=1)
+        ac1 = _tree_sum(yc[:, 1:] * yc[:, :-1]) / denom
+        ac2 = _tree_sum(yc[:, 2:] * yc[:, :-2]) / denom
+        zeros = _tree_sum((ys == 0).to(dt))
         return torch.stack([m, sd, ac1, ac2, zeros, ys.amax(dim=1)], dim=1)
 
     return _family(core, nmet=6)
@@ -682,8 +712,10 @@ def mg1_departure_times(a, s):
     """Scan-free M/G/1 departure times along the last axis from arrival
     times ``a`` and service times ``s``: ``d_i = S_i + cummax_{j<=i}(a_j -
     S_{j-1})`` with ``S_i = s_1 + .. + s_i``, algebraically the sequential
-    recursion ``d_i = s_i + max(a_i, d_{i-1})``."""
-    S = torch.cumsum(s, dim=-1)
+    recursion ``d_i = s_i + max(a_i, d_{i-1})``. The running sums are
+    :func:`_tree_cumsum` (batch-invariant bits); a running max rounds
+    nothing."""
+    S = _tree_cumsum(s)
     return S + torch.cummax(a - (S - s), dim=-1).values
 
 
@@ -700,12 +732,12 @@ def make_mg1_simulator(n_customers: int = 50) -> DeviceSimulator:
         lo = torch.minimum(params[:, 0], params[:, 1])[:, None]
         hi = torch.maximum(params[:, 0], params[:, 1])[:, None] + 1e-6
         rate = torch.clamp(params[:, 2].abs(), 1e-4, 1e3)[:, None]
-        a = torch.cumsum(noise.exponentials(n_customers) / rate, dim=1)
+        a = _tree_cumsum(noise.exponentials(n_customers) / rate)
         s = lo + (hi - lo) * noise.uniforms(n_customers)
         d = mg1_departure_times(a, s)
         y = torch.diff(d, dim=1, prepend=torch.zeros_like(d[:, :1]))
         return torch.cat([_row_quantiles(y, _OCTILES),
-                          y.mean(dim=1, keepdim=True)], dim=1)
+                          (_tree_sum(y) / n_customers)[:, None]], dim=1)
 
     return _family(core, nmet=8)
 
@@ -721,9 +753,9 @@ def make_ma2_simulator(n_obs: int = 200) -> DeviceSimulator:
         t1, t2 = params[:, :1], params[:, 1:2]
         e = noise.normals(n_obs + 2)
         y = e[:, 2:] + t1 * e[:, 1:-1] + t2 * e[:, :-2]
-        g0 = (y * y).sum(dim=1) / n_obs
-        g1 = (y[:, 1:] * y[:, :-1]).sum(dim=1) / n_obs
-        g2 = (y[:, 2:] * y[:, :-2]).sum(dim=1) / n_obs
+        g0 = _tree_sum(y * y) / n_obs
+        g1 = _tree_sum(y[:, 1:] * y[:, :-1]) / n_obs
+        g2 = _tree_sum(y[:, 2:] * y[:, :-2]) / n_obs
         return torch.stack([g0, g1, g2], dim=1)
 
     return _family(core, nmet=3)

@@ -37,6 +37,7 @@ _ROWS = 128                # query rows per block (csrc kRows)
 _STAGE_CENTERS = 64        # centers per shared-memory stage (csrc)
 _PROLOGUE_THREADS = 256    # centers per prologue block (csrc)
 _BLOCKS_PER_SM = 32        # partial-kernel blocks the split aims for per SM
+_MAX_SPLIT_STAGES = 2048   # stages (131,072 centers) one split sums at most
 _REF_BLOCK = 2048          # centers per block of the plain version
 
 
@@ -126,12 +127,16 @@ class LaunchPlan(NamedTuple):
 def launch_plan(n: int, m: int, p: int, sms: int, online: bool) -> LaunchPlan:
     """The launch plan of one call on a card with ``sms`` SMs: enough center
     splits that the partial kernel has about ``_BLOCKS_PER_SM`` blocks per
-    SM (at keep 2,048 there are only 16 query blocks), no split empty."""
+    SM (at keep 2,048 there are only 16 query blocks) and that no split
+    sums more than ``_MAX_SPLIT_STAGES`` stages, no split empty. The cap
+    bounds the length of each FP32 running sum: one split over 1,677,721
+    centers read 3.1e-4 nats off the plain version on an H100, past the
+    2e-4 bound; the merge then adds the few per-split sums."""
     ks = -(-(p + 2) // 8)
     n_stages = -(-m // _STAGE_CENTERS)
     q_blocks = -(-n // _ROWS)
     want = -(-_BLOCKS_PER_SM * sms // q_blocks)
-    n_split = max(1, min(want, n_stages))
+    n_split = max(1, min(want, n_stages), -(-n_stages // _MAX_SPLIT_STAGES))
     sps = -(-n_stages // n_split)
     n_split = -(-n_stages // sps)
     prologue_blocks = -(-n_stages * _STAGE_CENTERS // _PROLOGUE_THREADS)

@@ -49,9 +49,10 @@ def _fit_gram(xtx, xty, ncomp: int):
             ck = _nrm(c)
             for _ in range(8):
                 ck = _nrm(ck @ ck)
-            v0 = torch.full((p,), 1.0, dtype=dtype, device=device) / torch.sqrt(
-                torch.tensor(float(p), dtype=dtype, device=device)
-            )
+            # sqrt(p) rounded in the working dtype on the host: no scalar
+            # copy to the device inside the step
+            root_p = float(torch.sqrt(torch.tensor(float(p), dtype=dtype)))
+            v0 = torch.full((p,), 1.0, dtype=dtype, device=device) / root_p
             vec = _nrm(ck @ v0)
             for _ in range(8):
                 v2 = c @ vec

@@ -19,10 +19,11 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
              weights; one auto call under torch.cuda.set_sync_debug_mode
              ("error"); max abs diff <= 2e-4 nats;
 3. dengue  - examples/dengue_surrogate.json through
-             AbcSmc(cfg, device="cuda").run_device(): 5 complete SQLite sets
-             of 2,048 ranked rows, ncomp_used > 1 in each, >= 4 kernel
-             launches, posterior mean closer to the stated truth than the
-             prior mean;
+             AbcSmc(cfg, device="cuda").run_device(), cut to 3 sets: complete
+             SQLite sets of 2,048 ranked rows, ncomp_used > 1 in each, 2
+             kernel launches per set after set 0, posterior mean closer to
+             the stated truth than the prior mean (all 5 sets run in phase
+             11);
 4. north   - 1,000,000 particles x 6 parameters x 13 metrics, keep 50,000,
              3 sets, in-memory store: >= 2 kernel launches, ncomp_used > 1;
 5. host_cli - dengue_surrogate (2 sets) through the host engine's job queue:
@@ -48,8 +49,7 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
              scale, MA(2) thetas); per example the wall, the per-set device
              milliseconds with the simulate stage apart, the MULTIVARIATE
              retry rounds, and the replay of stored seeds in another batch
-             on the card (bit-equal, but for the Ricker autocorrelations
-             and the M/G/1 cumulative sums, held to a stated tolerance);
+             on the card (bit for bit, every example);
 8. sir_1m  - examples/sir.json with 1,048,576 particles, 3 sets, Box-Cox
              on, in-memory store: MULTIVARIATE proposal of 1M rows, Box-Cox
              over 1M x 6, the 160-step SIR loop over 1M particles, the
@@ -59,7 +59,39 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
              sweep of 320 x 320 = 102,400 dice combinations (one claim, one
              batch_fn call, writeback); a POSTERIOR replay whose source is
              the sir store of phase 7. Row counts, all 'D', odometer order
-             of the first and last rows, 0 kernel launches.
+             of the first and last rows, 0 kernel launches;
+10. hbm_scale - the generation step alone at 6 parameters x 13 metrics,
+             keep 5 %, data made on the card, at 2^24, 2^25 and 2^26 rows:
+             resident row passes against row_block = 2^21, each with the
+             proposal inside the step and apart from it (rank, free the
+             population, propose): ms, peak bytes, bytes per row,
+             ncomp_used (> 1 and equal), survivor overlap (>= 99.9 %),
+             doubled variance (rtol 1e-3); the kernel at each step's shape
+             against plain on 4,096 sampled query rows; the auto rule's two
+             limits, and one chunked + split step at the largest power of
+             two under the limit (keep capped at 2^22 there: the weight
+             kernel is quadratic in keep); then run_device(mirror_store=
+             False) at 2^24 x 6 x 13, 2 sets, row_block and propose_split
+             set in the config;
+11. fused   - dengue_surrogate, ricker, gk and mg1 as shipped under
+             device_dispatch "sequential" (twice) and "fused", one seed:
+             the fused run's stored rows, ranks and weights equal the
+             sequential run's as far as two sequential runs agree (bit for
+             bit where they do); per-set ms by route, capture seconds,
+             programs, launches; a 30-set schedule of 300, 500, 500, 750,
+             then 1,000 rows (dice, INDEPENDENT noise) through run_chain
+             with an nrmse_tolerance that cuts inside the 1,000-row bucket;
+             sir (MULTIVARIATE) under "fused": the eager chain, said so,
+             equal to sequential; the kernel inside a replayed graph
+             against plain;
+12. surfaces - on the dengue store of phase 3: checkpoint to a new path,
+             crc32.verify_checkpoint, compare() of the store with its
+             checkpoint (KS 0), ess in (1, keep], posterior_summary medians
+             inside the prior bounds, posterior_predictive(1000) on the
+             card.
+
+``python3 chip_smoke.py --only fused,surfaces`` runs the build, the named
+phases (dengue too where surfaces is named) and the closing lines alone.
 
 Each phase prints its wall time; the host phases also print the engine's
 timings split (read/rank/weight, propose, enqueue, claim, simulate,
@@ -174,15 +206,16 @@ def kernel_bound_ms(n, m, p):
 
 
 def example_kernel_shapes():
-    """Every (n, m, p) the shipped examples of the ``examples`` phase give
-    the kernel, read from their configs: set t weighs its survivors against
-    those of set t - 1."""
+    """Every (n, m, p) the shipped examples of the ``examples`` phase and
+    the ``fused`` phase's 30-set schedule give the kernel, read from their
+    configs: set t weighs its survivors against those of set t - 1."""
     from abcsmc_tpu_torch.config import parse_config
 
     shapes = set()
-    for name in EXAMPLES:
-        cfg = parse_config(
-            json.loads((REPO / "examples" / f"{name}.json").read_text()))
+    raws = [json.loads((REPO / "examples" / f"{name}.json").read_text())
+            for name in EXAMPLES] + [chain_config()]
+    for raw in raws:
+        cfg = parse_config(raw)
         keeps = [cfg.pred_prior_size_at(t) for t in range(cfg.num_smc_sets)]
         shapes |= {(keeps[t], keeps[t - 1], len(cfg.parameters))
                    for t in range(1, len(keeps))}
@@ -307,27 +340,24 @@ def phase_dengue():
     cfg = json.loads(path.read_text())
     truth = np.array(json.loads(
         re.search(r"truth=(\[[^\]]*\])", cfg["comment"]).group(1)))
-    n_sets, n, keep = 5, 102_400, 2_048
-    with tempfile.TemporaryDirectory() as tmp:
-        db = str(Path(tmp) / "dengue_surrogate.sqlite")
-        cfg["database_filename"] = db
-        mixture_logsumexp.launches = 0
-        t0 = time.perf_counter()
-        run = AbcSmc(cfg, device="cuda").run_device(seed=0)
-        wall = time.perf_counter() - t0
-        launches = mixture_logsumexp.launches
-        run.storage.close()
-        with closing(sqlite3.connect(db)) as con:
-            rows = con.execute(
-                "select smcSet, count(*), sum(status = 'D'), "
-                "sum(posterior > -1) from job group by smcSet order by smcSet"
-            ).fetchall()
+    # 3 of the shipped 5 sets (widths unchanged): the surfaces phase reads
+    # this store back twice; the fused phase runs all 5 sets
+    n_sets, n, keep = 3, 102_400, 2_048
+    cfg["smc_iterations"] = n_sets
+    db = cfg["database_filename"] = fresh_store("dengue_surrogate.sqlite")
+    mixture_logsumexp.launches = 0
+    t0 = time.perf_counter()
+    run = AbcSmc(cfg, device="cuda").run_device(seed=0)
+    wall = time.perf_counter() - t0
+    launches = mixture_logsumexp.launches
+    run.storage.close()
+    rows = store_rows(db)
     check(rows == [(t, n, n, keep) for t in range(n_sets)],
           f"dengue store rows {rows}")
     gens = [e for e in run.timings if e["op"] == "device_generation"]
     ncomp = [e["ncomp_used"] for e in gens]
     check(len(ncomp) == n_sets and min(ncomp) > 1, f"dengue ncomp {ncomp}")
-    check(launches >= n_sets - 1, f"dengue kernel launches {launches}")
+    check(launches == 2 * (n_sets - 1), f"dengue kernel launches {launches}")
     pars, w = run.posterior()
     check(np.isfinite(pars).all() and np.isfinite(w).all(), "finite posterior")
     rmse_post = float(np.sqrt(((pars.mean(0) - truth) ** 2).mean()))
@@ -338,7 +368,7 @@ def phase_dengue():
           "launches": launches, "set_ms": [e["device_ms"] for e in gens],
           "wall_s": wall, "rmse_posterior": rmse_post,
           "rmse_prior": rmse_prior})
-    return launches
+    return launches, run
 
 
 def phase_north():
@@ -574,16 +604,15 @@ def phase_resume():
 
 # name -> (truth as the config's comment states it, indices of the
 # parameters whose posterior mean must beat the prior mean, the most a
-# metric may move, relative to max(1, |metric|), when its stored seed is
-# replayed in another batch on the card: 0 wherever an H100 read no
-# difference; the Ricker autocorrelations moved by one float32 unit in the
-# last place there and the M/G/1 cumulative sums by 5e-5)
+# metric may move when its stored seed is replayed in another batch on the
+# card: 0 for every example, since every row reduction of a simulator is a
+# fixed tree of elementwise adds)
 EXAMPLES = {
     "sir": ((0.30, 0.10), (0, 1), 0.0),
     "lv": ((1.0, 0.1), (0, 1), 0.0),
-    "ricker": ((3.8, 0.3, 10.0), (), 2e-7),
+    "ricker": ((3.8, 0.3, 10.0), (), 0.0),
     "gk": ((3.0, 1.0, 2.0, 0.5), (0, 1), 0.0),
-    "mg1": ((1.0, 5.0, 0.2), (), 1e-4),
+    "mg1": ((1.0, 5.0, 0.2), (), 0.0),
     "ma2": ((0.6, 0.2), (0, 1), 0.0),
     "dice": ((13.0, 8.0), (), 0.0),
 }
@@ -649,6 +678,54 @@ def fit_report(run, cfg, truth, must_beat):
     }
 
 
+def reduction_price():
+    """What the batch-invariant row reductions of the simulators cost
+    against the library calls they replaced, at the shipped shapes (4,096
+    particles; M/G/1: 50 customers, Ricker: 100 counts): milliseconds by
+    CUDA events, and operations that launch a kernel, counted as they are
+    dispatched (views launch nothing)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from abcsmc_tpu_torch.models.simulators import _tree_cumsum, _tree_sum
+
+    views = ("slice", "select", "alias", "view", "expand", "unsqueeze",
+             "squeeze", "detach", "t.", "transpose")
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not str(func).startswith(tuple(f"aten.{v}" for v in views)):
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    def price(fn):
+        Count.n = 0
+        with Count():
+            fn()
+        return {"launches": Count.n, "ms": cuda_ms(fn, 50)}
+
+    out = {}
+    for name, cols in (("mg1", 50), ("ricker", 100)):
+        x = torch.rand((4096, cols), device="cuda")
+        out[name] = {
+            "tree_sum": price(lambda: _tree_sum(x)),
+            "library_sum": price(lambda: x.sum(dim=1)),
+            "tree_cumsum": price(lambda: _tree_cumsum(x)),
+            "library_cumsum": price(lambda: torch.cumsum(x, dim=1)),
+        }
+    # per simulate call: M/G/1 two running sums and one sum; Ricker five sums
+    out["per_call"] = {
+        "mg1": {f"{r}_{k}": 2 * out["mg1"][f"{r}_cumsum"][k]
+                + out["mg1"][f"{r}_sum"][k]
+                for r in ("tree", "library") for k in ("launches", "ms")},
+        "ricker": {f"{r}_{k}": 5 * out["ricker"][f"{r}_sum"][k]
+                   for r in ("tree", "library") for k in ("launches", "ms")},
+    }
+    return out
+
+
 def phase_examples():
     from abcsmc_tpu_torch import AbcSmc
     from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
@@ -687,6 +764,7 @@ def phase_examples():
               "replay_other_batch_max_rel_diff":
                   replay_diff(run, max(sizes), replay_tol),
               **report})
+    emit({"phase": "examples", "reduction_price": reduction_price()})
     return total
 
 
@@ -834,6 +912,509 @@ def phase_projection():
     return 0
 
 
+# --------------------------------------------------------------------------- #
+# hbm_scale: chunked row passes and split propose at sizes near the card's
+# memory
+# --------------------------------------------------------------------------- #
+
+SCALE_SIZES = (1 << 24, 1 << 25, 1 << 26)
+SCALE_BLOCK = 1 << 21
+SCALE_KEEP_CAP = 1 << 22     # beyond SCALE_SIZES: the kernel is O(keep^2)
+SCALE_NPAR, SCALE_NMET = 6, 13
+
+
+def scale_config(n, keep, sets=2, **extra):
+    import numpy as np
+
+    truth = np.random.default_rng(42).uniform(0.3, 0.7, SCALE_NPAR)
+    obs = truth @ scale_mix()
+    return {
+        "smc_iterations": sets, "num_samples": n,
+        "predictive_prior_size": keep,
+        "parameters": [
+            {"name": f"p{i}", "dist_type": "UNIFORM", "num_type": "FLOAT",
+             "par1": 0.0, "par2": 1.0} for i in range(SCALE_NPAR)],
+        "metrics": [
+            {"name": f"m{j}", "num_type": "FLOAT", "value": float(obs[j])}
+            for j in range(SCALE_NMET)],
+        **extra,
+    }, truth
+
+
+def scale_mix():
+    import numpy as np
+
+    return np.random.default_rng(0).normal(size=(SCALE_NPAR, SCALE_NMET))
+
+
+def scale_generation(n, keep, row_block, split):
+    import numpy as np
+
+    from abcsmc_tpu_torch.config import parse_config
+    from abcsmc_tpu_torch.models.parameters import ParameterSet
+    from abcsmc_tpu_torch.models.transforms import ParameterTransform
+    from abcsmc_tpu_torch.parallel.generation import Generation
+
+    raw, _ = scale_config(n, keep)
+    cfg = parse_config(raw)
+    return Generation(
+        ParameterSet.from_specs(cfg.parameters),
+        ParameterTransform(cfg.parameters), None,
+        np.array([m.value for m in cfg.metrics]), device="cuda",
+        row_block=row_block, propose_split=split)
+
+
+def scale_data(n, keep):
+    """A population made on the card, block by block: uniform parameters,
+    metrics = params @ mix + 0.3 N(0, 1); and a previous state of ``keep``
+    survivors around the middle of the prior box."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    mix = torch.as_tensor(scale_mix(), dtype=torch.float32, device=dev)
+    params = torch.rand((n, SCALE_NPAR), generator=g, device=dev)
+    mets = torch.empty((n, SCALE_NMET), device=dev)
+    for start in range(0, n, SCALE_BLOCK):
+        rows = slice(start, min(start + SCALE_BLOCK, n))
+        mets[rows] = params[rows] @ mix
+        mets[rows] += 0.3 * torch.randn(mets[rows].shape, generator=g,
+                                        device=dev)
+    state = (0.3 + 0.4 * torch.rand((keep, SCALE_NPAR), generator=g,
+                                    device=dev),
+             torch.full((keep,), keep ** -0.5, device=dev),
+             torch.full((SCALE_NPAR,), 0.02, device=dev))
+    return [params, mets], state
+
+
+def scale_step(n, keep, row_block, split):
+    """One later-set generation at n rows with an n-row proposal: inside
+    the step, or (``split``) apart from it after the population is dropped,
+    as the engine orders it (the engine also fetches the set in between).
+    Returns the numbers and the small leaves to compare."""
+    import torch
+
+    gen = scale_generation(n, keep, row_block, split)
+    pop, state = scale_data(n, keep)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    if split is None:
+        split = gen.split_propose_active(n, n)
+    if split:
+        draws = gen.draw_vdv_seed(g)
+        res = gen.step_precomputed(pop[0], pop[1], keep, 0, draws, state)
+        leaves = (res.survivor_idx, res.survivor_params, res.weights,
+                  res.doubled_variance, res.ncomp_used)
+        del res
+        pop.clear()                      # rank -> free -> propose
+        ev[1].record()
+        draws = gen.draw_proposal(g, n, draws)
+        nxt, _, _ = gen.propose(leaves[1], leaves[2], leaves[3], n, draws)
+    else:
+        draws = gen.draw_step(g, n)
+        res = gen.step_precomputed(pop[0], pop[1], keep, n, draws, state)
+        ev[1].record()
+        leaves = (res.survivor_idx, res.survivor_params, res.weights,
+                  res.doubled_variance, res.ncomp_used)
+        nxt = res.next_params
+        del res
+    ev[2].record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(nxt.shape == (n, SCALE_NPAR) and bool(torch.isfinite(nxt[-1]).all()),
+          "proposal shape")
+    out = {"rows": n, "keep": keep, "row_block": row_block, "split": split,
+           "ms": ev[0].elapsed_time(ev[2]),
+           "rank_ms": ev[0].elapsed_time(ev[1]),
+           "peak_bytes": peak, "bytes_per_row": peak / n,
+           "ncomp_used": int(leaves[4])}
+    del nxt, draws, pop
+    return out, leaves, state
+
+
+def kernel_vs_plain_sampled(surv_par, state, rows=4096):
+    """The kernel at a step's own shape (survivors x previous survivors x
+    parameters) against plain on ``rows`` evenly spaced query rows (plain
+    is a function of each query row by itself, and costs 50 times the
+    kernel)."""
+    import torch
+
+    from abcsmc_tpu_torch.ops.kernels import (
+        mixture_logsumexp, mixture_logsumexp_reference,
+    )
+    from abcsmc_tpu_torch.ops.weights import _prep_scaled
+
+    a, b, _ = _prep_scaled(surv_par, state[0], state[2])
+    a, b = a.contiguous(), b.contiguous()
+    lw = torch.log(state[1]).contiguous()
+    got = mixture_logsumexp(a, b, lw)
+    pick = torch.linspace(0, a.shape[0] - 1, min(rows, a.shape[0]),
+                          device=a.device).long()
+    ref = mixture_logsumexp_reference(a[pick].contiguous(), b, lw)
+    err = float((got[pick] - ref).abs().max())
+    shape = f"{a.shape[0]}x{b.shape[0]}x{a.shape[1]}"
+    check(err <= TOL, f"kernel at {shape}: max abs err {err}")
+    return shape, err
+
+
+def phase_hbm_scale():
+    import numpy as np
+    import torch
+
+    from abcsmc_tpu_torch import AbcSmc
+    from abcsmc_tpu_torch.models.simulators import (
+        make_linear_gaussian_simulator,
+    )
+    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
+
+    t_phase = time.perf_counter()
+    launches = 0
+    errs = {}
+    scale_step(1 << 20, 1 << 15, 0, False)      # first-use work, untimed
+    for n in SCALE_SIZES:
+        keep = n // 20
+        ref = None
+        for row_block in (0, SCALE_BLOCK):
+            for split in (False, True):
+                mixture_logsumexp.launches = 0
+                out, leaves, state = scale_step(n, keep, row_block, split)
+                check(mixture_logsumexp.launches == 2,
+                      f"hbm_scale step launches {mixture_logsumexp.launches}")
+                launches += 2
+                check(out["ncomp_used"] > 1, f"hbm_scale ncomp {out}")
+                if ref is None:
+                    ref = leaves
+                    shape, err = kernel_vs_plain_sampled(leaves[1], state)
+                    errs[shape] = err
+                else:
+                    both = torch.isin(leaves[0], ref[0]).float().mean()
+                    out["survivor_overlap"] = float(both)
+                    out["dv_max_rel_diff"] = float(
+                        ((leaves[3] - ref[3]).abs() / ref[3].abs()).max())
+                    check(out["survivor_overlap"] >= 0.999
+                          and out["dv_max_rel_diff"] <= 1e-3
+                          and out["ncomp_used"] == int(ref[4]),
+                          f"hbm_scale chunked/split vs resident: {out}")
+                emit({"phase": "hbm_scale", "step": out})
+                del leaves, state
+        del ref
+        torch.cuda.empty_cache()
+
+    # the auto rule, and one step beyond the resident limit
+    gen = scale_generation(1 << 24, (1 << 24) // 20, None, None)
+    budget = 0.8 * gen.memory_bytes
+    fits = int(budget // max(gen.chunked_row_bytes(), gen.propose_row_bytes()))
+    n_big = 1 << (fits.bit_length() - 1)
+    rule = {"memory_bytes": gen.memory_bytes,
+            "resident_row_bytes": gen.resident_row_bytes(),
+            "chunked_row_bytes": gen.chunked_row_bytes(),
+            "propose_row_bytes": gen.propose_row_bytes(),
+            "row_chunk_threshold": gen.row_chunk_threshold,
+            "split_threshold": gen.split_threshold,
+            "largest_chunked_split_rows": n_big}
+    check(gen.row_block_for(n_big) == SCALE_BLOCK
+          and gen.split_propose_active(n_big, n_big)
+          and n_big > gen.row_chunk_threshold,
+          f"the auto rule refuses the resident route at {n_big}: {rule}")
+    check(gen.row_block_for(SCALE_SIZES[0]) == 0
+          and not gen.split_propose_active(SCALE_SIZES[0], SCALE_SIZES[0]),
+          "the auto rule keeps 2^24 resident and unsplit")
+    del gen
+    torch.cuda.empty_cache()
+    mixture_logsumexp.launches = 0
+    keep_big = min(n_big // 20, SCALE_KEEP_CAP)
+    big, leaves, state = scale_step(n_big, keep_big, None, None)
+    check(mixture_logsumexp.launches == 2, "largest step launches")
+    launches += 2
+    check(big["ncomp_used"] > 1 and big["peak_bytes"] <= budget,
+          f"largest step: {big} against a budget of {budget}")
+    shape, err = kernel_vs_plain_sampled(leaves[1], state)
+    errs[shape] = err
+    del leaves, state
+    torch.cuda.empty_cache()
+    emit({"phase": "hbm_scale", "auto_rule": rule, "largest_step": big})
+
+    # the engine at 2^24 rows with both keys in the config, no store
+    n, sets = SCALE_SIZES[0], 2
+    keep = n // 20
+    raw, truth = scale_config(n, keep, sets, row_block=SCALE_BLOCK,
+                              propose_split=True, database_filename="")
+    sim = make_linear_gaussian_simulator(SCALE_NPAR, SCALE_NMET,
+                                         noise_sd=0.3, mix=scale_mix())
+    mixture_logsumexp.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with redirect_stderr(io.StringIO()):
+        run = AbcSmc(raw, simulator=sim).run_device(seed=0,
+                                                    mirror_store=False)
+    wall = time.perf_counter() - t0
+    run_launches = mixture_logsumexp.launches
+    launches += run_launches
+    check(run_launches == 2 * (sets - 1), f"hbm run launches {run_launches}")
+    check(not run.storage.exists(), "mirror_store=False wrote a store")
+    gens = [e for e in run.timings if e["op"] == "device_generation"]
+    ncomp = [e["ncomp_used"] for e in gens]
+    check(len(gens) == sets and min(ncomp) > 1, f"hbm run ncomp {ncomp}")
+    pars, w = run.posterior()
+    check(pars.shape == (keep, SCALE_NPAR) and np.isfinite(w).all(),
+          "hbm run posterior")
+    rmse_post = float(np.sqrt(((pars.mean(0) - truth) ** 2).mean()))
+    rmse_prior = float(np.sqrt(((0.5 - truth) ** 2).mean()))
+    check(rmse_post < rmse_prior, f"hbm run rmse {rmse_post} {rmse_prior}")
+    emit({"phase": "hbm_scale", "run_device": {
+        "rows": n, "keep": keep, "sets": sets, "row_block": SCALE_BLOCK,
+        "propose_split": True, "mirror_store": False, "wall_s": wall,
+        "set_ms": [e["device_ms"] for e in gens], "ncomp": ncomp,
+        "launches": run_launches,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "phases": [e for e in run.timings if e["op"] == "run_device_phases"],
+        "rmse_posterior": rmse_post, "rmse_prior": rmse_prior},
+        "kernel_max_abs_err": errs,
+        "phase_wall_s": time.perf_counter() - t_phase})
+    return launches, errs
+
+
+# --------------------------------------------------------------------------- #
+# fused: run_scan / run_chain as CUDA-graph replays against the sequential loop
+# --------------------------------------------------------------------------- #
+
+FUSED_EXAMPLES = ("dengue_surrogate", "ricker", "gk", "mg1")
+CHAIN_SIZES = [300, 500, 500, 750, 1000]
+CHAIN_SETS = 30
+
+
+def chain_config(**extra):
+    """The reference quick-start's varying-size schedule, 30 sets, on the
+    dice game with INDEPENDENT noise (a capturable step)."""
+    cfg = json.loads((REPO / "examples" / "dice.json").read_text())
+    cfg.update(num_samples=CHAIN_SIZES, smc_iterations=CHAIN_SETS,
+               noise="INDEPENDENT", database_filename="", **extra)
+    return cfg
+
+
+def routed_run(cfg, dispatch, seed=0):
+    """``run_device`` of ``cfg`` (in-memory store) under one
+    ``device_dispatch``; returns (engine, wall s, kernel launches, stderr)."""
+    from abcsmc_tpu_torch import AbcSmc
+    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
+
+    cfg = dict(cfg, device_dispatch=dispatch, database_filename="")
+    mixture_logsumexp.launches = 0
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stderr(err):
+        run = AbcSmc(cfg).run_device(seed=seed, verbose=True)
+    return (run, time.perf_counter() - t0, mixture_logsumexp.launches,
+            err.getvalue())
+
+
+def stored_diff(a, b):
+    """The largest |difference| between what two runs stored (parameters,
+    seeds, metrics, posterior ranks) and their weights; inf when the sets
+    or the survivors differ."""
+    import numpy as np
+
+    ga, gb = a.storage.read_generations(), b.storage.read_generations()
+    if len(ga) != len(gb):
+        return math.inf
+    worst = 0.0
+    for x, y in zip(ga, gb):
+        if (x.size != y.size or not np.array_equal(x.seeds, y.seeds)
+                or not np.array_equal(x.posterior_ranks, y.posterior_ranks)):
+            return math.inf
+        worst = max(worst, float(np.abs(x.params - y.params).max()),
+                    float(np.abs(x.metrics - y.metrics).max()))
+    for x, y in zip(a._weights, b._weights):
+        worst = max(worst, float(np.abs(x - y).max()))
+    return worst
+
+
+def route_report(run):
+    gens = [e for e in run.timings if e["op"] == "device_generation"]
+    ph = [e for e in run.timings if e["op"] == "run_device_phases"][-1]
+    return {"set_ms": [e["device_ms"] for e in gens],
+            "routes": [e["route"] for e in gens],
+            "ncomp": [e["ncomp_used"] for e in gens],
+            **{k: ph[k] for k in ("route", "dispatch_s", "mirror_s",
+                                  "programs", "graph_captures",
+                                  "graph_replays", "capture_s")}}
+
+
+def replayed_kernel_vs_plain():
+    """The kernel inside a captured graph: capture one auto call on static
+    inputs, then replay it on other inputs copied into them, against plain."""
+    import torch
+
+    from abcsmc_tpu_torch.ops.kernels import (
+        mixture_logsumexp, mixture_logsumexp_reference,
+    )
+
+    errs = {}
+    for n, m, p in ((2048, 2048, 16), (410, 410, 3)):
+        static = [x.clone() for x in kernel_inputs(n, m, p, seed=1)]
+        mixture_logsumexp(*static)                       # warm-up
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = mixture_logsumexp(*static)
+        for seed in (2, 3):
+            fresh = kernel_inputs(n, m, p, seed=seed)
+            for dst, src in zip(static, fresh):
+                dst.copy_(src)
+            graph.replay()
+            torch.cuda.synchronize()
+            ref = mixture_logsumexp_reference(*fresh)
+            err = float((out - ref).abs().max())
+            check(err <= TOL, f"replayed kernel at {n}x{m}x{p}: {err}")
+            errs[f"replay_{n}x{m}x{p}/seed{seed}"] = err
+    return errs
+
+
+def phase_fused():
+    import numpy as np
+    import torch
+
+    from abcsmc_tpu_torch.ops import stats
+    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
+
+    t_phase = time.perf_counter()
+    total = 0
+    before = mixture_logsumexp.launches
+    kernel_errs = replayed_kernel_vs_plain()
+    mixture_logsumexp.launches = before
+    for name in FUSED_EXAMPLES:
+        cfg = json.loads((REPO / "examples" / f"{name}.json").read_text())
+        n_sets = cfg["smc_iterations"]
+        seq, wall_seq, l_seq, _ = routed_run(cfg, "sequential")
+        seq2, wall_seq2, _, _ = routed_run(cfg, "sequential")
+        fused, wall_fused, l_fused, said = routed_run(cfg, "fused")
+        total += l_seq + l_fused
+        agree = stored_diff(seq, seq2)
+        diff = stored_diff(seq, fused)
+        check(diff <= agree, f"{name}: fused differs from sequential by "
+              f"{diff}, two sequential runs by {agree}")
+        check(l_fused == l_seq == 2 * (n_sets - 1),
+              f"{name}: launches sequential {l_seq}, fused {l_fused}")
+        rep = route_report(fused)
+        check(rep["routes"] == ["eager", "eager"] + ["replay"] * (n_sets - 2)
+              and rep["graph_replays"] == n_sets - 2
+              and rep["graph_captures"] == 1
+              and rep["programs"] == n_sets + 1,
+              f"{name}: fused route {rep}")
+        check("replay one CUDA graph" in said, f"{name}: route not said")
+        emit({"phase": "fused", "example": name, "sets": n_sets,
+              "sequential_runs_max_abs_diff": agree,
+              "fused_vs_sequential_max_abs_diff": diff,
+              "wall_s": {"sequential": [wall_seq, wall_seq2],
+                         "fused": wall_fused},
+              "launches": {"sequential": l_seq, "fused": l_fused},
+              "sequential": route_report(seq2), "fused": rep})
+        del seq, seq2, fused
+
+    # a varying-size schedule whose nrmse_tolerance cuts inside the bucket
+    # (the NRMSE trajectory is noisy: take the first seed with a set in the
+    # replayed part of the bucket whose NRMSE is below every earlier set's)
+    for chain_seed in range(8):
+        free, wall_free, _, _ = routed_run(chain_config(), "sequential",
+                                           seed=chain_seed)
+        obs = torch.as_tensor(free.obs)
+        nrmse = [float(stats.nrmse(torch.as_tensor(m[s]), obs)) for m, s in
+                 zip(free.particle_metrics, free._predictive_prior)]
+        records = [t for t in range(7, CHAIN_SETS - 1)
+                   if nrmse[t] < min(nrmse[:t])]
+        if records:
+            break
+    check(records, f"no set of the bucket sets an NRMSE record: {nrmse}")
+    t_cut = records[0]
+    tol = (nrmse[t_cut] + min(nrmse[:t_cut])) / 2
+    cfg = chain_config(nrmse_tolerance=tol)
+    seq, wall_seq, l_seq, _ = routed_run(cfg, "sequential", seed=chain_seed)
+    fused, wall_fused, l_fused, _ = routed_run(cfg, "fused", seed=chain_seed)
+    total += l_seq + l_fused
+    check(len(seq.particle_parameters) == t_cut + 1,
+          f"chain: sequential stopped after {len(seq.particle_parameters)} "
+          f"sets, expected {t_cut + 1}")
+    diff = stored_diff(seq, fused)
+    check(diff == 0.0, f"chain: fused differs from sequential by {diff}")
+    rep = route_report(fused)
+    # sets 0-4 run singly (size transitions, then the peeled first set of
+    # the bucket), set 5 is the bucket's warm-up, 6-29 replay
+    check(rep["graph_replays"] == CHAIN_SETS - 6 and rep["route"] == "chain"
+          and l_fused == 2 * (CHAIN_SETS - 1) and l_seq == 2 * t_cut,
+          f"chain: {rep}, launches {l_seq}, {l_fused}")
+    emit({"phase": "fused", "example": "chain", "sizes": CHAIN_SIZES,
+          "sets": CHAIN_SETS, "seed": chain_seed, "nrmse_tolerance": tol,
+          "cut_after_set": t_cut,
+          "fused_vs_sequential_max_abs_diff": diff,
+          "wall_s": {"sequential_30_sets": wall_free,
+                     "sequential_cut": wall_seq, "fused_30_sets": wall_fused},
+          "launches": {"sequential": l_seq, "fused": l_fused},
+          "sequential_30_sets": route_report(free), "fused": rep})
+
+    # a MULTIVARIATE step is not capturable: the eager chain, said so
+    cfg = json.loads((REPO / "examples" / "sir.json").read_text())
+    seq, wall_seq, l_seq, _ = routed_run(cfg, "sequential")
+    fused, wall_fused, l_fused, said = routed_run(cfg, "fused")
+    total += l_seq + l_fused
+    diff = stored_diff(seq, fused)
+    rep = route_report(fused)
+    check(diff == 0.0 and rep["graph_captures"] == 0
+          and set(rep["routes"]) == {"eager"} and rep["route"] == "scan"
+          and "running the eager chain" in said and l_fused == l_seq,
+          f"sir under fused: diff {diff}, {rep}, said {said[:200]!r}")
+    emit({"phase": "fused", "example": "sir", "noise": "MULTIVARIATE",
+          "route_said": [ln for ln in said.splitlines()
+                         if ln.startswith("run_device:")],
+          "fused_vs_sequential_max_abs_diff": diff,
+          "wall_s": {"sequential": wall_seq, "fused": wall_fused},
+          "launches": {"sequential": l_seq, "fused": l_fused},
+          "fused": rep, "kernel_replayed_max_abs_err": kernel_errs,
+          "phase_wall_s": time.perf_counter() - t_phase})
+    return total, kernel_errs
+
+
+def phase_surfaces(run):
+    import numpy as np
+
+    from abcsmc_tpu_torch import compare, crc32
+
+    t0 = time.perf_counter()
+    db = run.storage.path
+    ckpt = fresh_store("dengue_checkpoint.sqlite")
+    stamp = run.checkpoint(ckpt)
+    t_ckpt = time.perf_counter() - t0
+    check(crc32.verify_checkpoint(ckpt), "checkpoint CRC")
+    check(stamp["crc32"] == crc32.database_crc(ckpt)["crc32"], "stamp")
+    cmp = compare.compare(db, ckpt)
+    check(max(v["ks"] for v in cmp.values()) == 0.0
+          and store_rows(ckpt) == store_rows(db), "checkpoint differs")
+    keep = run.config.pred_prior_size_at(run.config.num_smc_sets - 1)
+    ess = run.ess()
+    check(1.0 < ess <= keep, f"ess {ess}")
+    summary = run.posterior_summary()
+    for spec, (name, row) in zip(run.config.parameters, summary.items()):
+        check(spec.par1 <= row["quantiles"][0.5] <= spec.par2,
+              f"median of {name} outside the prior: {row}")
+    t1 = time.perf_counter()
+    pred = run.posterior_predictive(1000, seed=3)
+    t_pred = time.perf_counter() - t1
+    check(run.device.type == "cuda" and pred.shape == (1000, run.nmet)
+          and bool(np.isfinite(pred).all()), "posterior_predictive")
+    # model criticism as a user would read it: the observed metrics lie
+    # inside the predictive draws' range in most columns
+    inside = float(((pred.min(0) <= run.obs) & (run.obs <= pred.max(0))).mean())
+    check(inside >= 0.9, f"observed inside the predictive range: {inside}")
+    emit({"phase": "surfaces", "checkpoint_s": t_ckpt, "stamp": stamp,
+          "compare_max_ks": 0.0, "ess": ess, "keep": keep,
+          "first_parameter": next(iter(summary.items())),
+          "posterior_predictive": {"rows": 1000, "seconds": t_pred,
+                                   "observed_inside_range": inside},
+          "wall_s": time.perf_counter() - t0})
+
+
 def main() -> int:
     if not (REPO / "abcsmc_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -862,10 +1443,34 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_seconds["mixture_logsumexp"]})
 
+    only = set()
+    if "--only" in sys.argv[1:]:
+        only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
+
+    def wanted(name):
+        return not only or name in only
+
     errs, times = phase_kernel()
-    launches = (phase_dengue() + phase_north() + phase_host_cli()
-                + phase_resume() + phase_examples() + phase_sir_1m()
-                + phase_projection())
+    launches = 0
+    dengue_run = None
+    if wanted("dengue") or wanted("surfaces"):
+        dengue_launches, dengue_run = phase_dengue()
+        launches += dengue_launches
+    for name, phase in (("north", phase_north), ("host_cli", phase_host_cli),
+                        ("resume", phase_resume),
+                        ("examples", phase_examples),
+                        ("sir_1m", phase_sir_1m),
+                        ("projection", phase_projection)):
+        if wanted(name):
+            launches += phase()
+    for name, phase in (("hbm_scale", phase_hbm_scale),
+                        ("fused", phase_fused)):
+        if wanted(name):
+            more, more_errs = phase()
+            launches += more
+            errs.update(more_errs)
+    if wanted("surfaces"):
+        phase_surfaces(dengue_run)
     n, m, p = REPORT_SHAPE
     big = f"{n}x{m}x{p}"
     bound = kernel_bound_ms(n, m, p)

@@ -1,7 +1,8 @@
 """The port's engine (abcsmc_tpu_torch.AbcSmc.run_device) held against the
 JAX engine, plus the port's packaging contracts: no jax import, verbatim
-copies of the jax-free modules, identical config parsing, and a clear
-"not yet ported" error for everything outside the slice.
+copies of the jax-free modules, identical config parsing, and the engine's
+surfaces (checkpoint, ess, posterior_summary, posterior_predictive, direct,
+compare, crc32) against the JAX engine on one JAX-written store.
 
 Law tolerance: the two engines draw from different generators, so their
 posteriors agree in law only. Final predictive priors (200 survivors each)
@@ -157,44 +158,188 @@ def test_negative_ncomp_raises_before_store_write():
     assert a.storage.read_generations() == []
 
 
-def test_out_of_slice_raises_not_yet_ported(tmp_path):
-    """What is not yet ported: the device step's chunked rows, split
-    propose and two-stage top-K, the fused dispatch, and the engine's
-    checkpoint/summary surfaces. Box-Cox, MULTIVARIATE noise, projection
-    and every builtin simulator run."""
-    a = _port(_cfg(n=50, sets=1))
-    for call in (a.checkpoint, a.ess, a.posterior_predictive,
-                 a.posterior_summary):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            call()
-    for extra in ({"row_block": 64}, {"propose_split": True},
-                  {"topk_two_stage": True}, {"device_dispatch": "fused"}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            _port(_cfg(n=50, sets=1, **extra)).run_device()
-    # the device step takes the options the host brain has
+def test_device_and_host_engines_take_box_cox_and_mvn(tmp_path):
+    """The device step and the host brain both take Box-Cox and
+    MULTIVARIATE noise; projection configs and every builtin simulator
+    construct; nothing in the package says "not yet ported"."""
     dev = _port(_cfg(n=200, sets=2, box_cox=True, noise="MULTIVARIATE"))
     with redirect_stderr(io.StringIO()):
         dev.run_device(seed=1)
     gens = [e for e in dev.timings if e["op"] == "device_generation"]
     assert len(gens[0]["box_cox_lambdas"]) == NMET
     assert gens[0]["mvn_rounds"] >= 1 and gens[1]["mvn_rounds"] == 0
-    # the host engine takes the options its brain has (Box-Cox, MVN noise)
     db = str(tmp_path / "host.sqlite")
     with redirect_stderr(io.StringIO()):
         _port(_cfg(db, n=50, sets=2, box_cox=True,
                    noise="MULTIVARIATE")).run(seed=1)
     assert [g.size for g in
             _port(_cfg(db, n=50, sets=2)).storage.read_generations()] == [50, 50]
-    # projection configs and every builtin simulator construct
     for example in ("pseudo.json", "sir.json"):
         raw = json.loads((REPO / "examples" / example).read_text())
         raw["database_filename"] = str(tmp_path / (example + ".sqlite"))
         eng = AbcSmc(raw, device="cpu")
         assert eng.simulator.is_device
         eng.storage.close()
-    # the only "not yet ported" raises left in the engine
-    src = (REPO / "abcsmc_tpu_torch" / "engine.py").read_text()
-    assert src.count("raise _not_ported(") == 8
+    for path in (REPO / "abcsmc_tpu_torch").rglob("*.py"):
+        text = path.read_text()
+        assert "not yet ported" not in text, path
+        assert "NotImplementedError(" not in text or path.name in (
+            "simulators.py", "parameters.py", "base.py"), path
+
+
+# ------------------------------------------------------------ the surfaces
+@pytest.fixture(scope="module")
+def jax_store(tmp_path_factory):
+    """One store written by the JAX engine, and that engine."""
+    db = str(tmp_path_factory.mktemp("surfaces") / "jax.sqlite")
+    with redirect_stderr(io.StringIO()):
+        ja = JAbcSmc(_cfg(db, n=800)).run_device(seed=3)
+    return db, ja
+
+
+def _reader(db):
+    """The port on a finished store: the resume pass reads every set."""
+    ta = _port(_cfg(db, n=800))
+    with redirect_stderr(io.StringIO()):
+        ta.run_device(seed=0)
+    return ta
+
+
+def test_ess_and_posterior_summary_equal_the_jax_engine(jax_store):
+    db, ja = jax_store
+    ta = _reader(db)
+    for t in (0, 1, -1):
+        assert ta.ess(t) == pytest.approx(ja.ess(t), rel=1e-8)
+    assert ta.ess(0) == pytest.approx(80.0)          # uniform weights: K
+    assert 1.0 < ta.ess() <= 80.0
+    want, got = ja.posterior_summary(), ta.posterior_summary()
+    assert list(got) == list(want) == ["p0", "p1", "p2"]
+    for name in want:
+        for k in ("mean", "sd", "ess"):
+            assert got[name][k] == pytest.approx(want[name][k], rel=1e-8)
+        assert got[name]["quantiles"] == pytest.approx(
+            want[name]["quantiles"], rel=1e-12)
+    q = ta.posterior_summary(set_num=1, quantiles=(0.1, 0.9))["p1"]
+    jq = ja.posterior_summary(set_num=1, quantiles=(0.1, 0.9))["p1"]
+    assert q["quantiles"] == pytest.approx(jq["quantiles"], rel=1e-12)
+    ta.storage.close()
+
+
+def test_posterior_predictive_agrees_with_the_jax_engine_in_law(jax_store):
+    """Different generators: the draws agree in law. 4,000 draws each; per
+    metric the KS distance stays under the alpha = 0.001 critical value
+    1.95 * sqrt(2 / 4000) = 0.0436."""
+    db, ja = jax_store
+    ta = _reader(db)
+    n = 4000
+    want = ja.posterior_predictive(n, seed=1)
+    got = ta.posterior_predictive(n, seed=1)
+    assert got.shape == want.shape == (n, NMET) and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, ta.posterior_predictive(n, seed=1))
+    assert not np.array_equal(got, ta.posterior_predictive(n, seed=2))
+    for j in range(NMET):
+        assert ks_distance(got[:, j], want[:, j]) < 0.0436, j
+    first = ta.posterior_predictive(50, seed=1, set_num=0)
+    assert first.shape == (50, NMET) and np.isfinite(first).all()
+    no_sim = AbcSmc({k: v for k, v in _cfg(db, n=800).items()
+                     if k != "simulator"}, device="cpu")
+    from abcsmc_tpu_torch.errors import SimulatorError
+    with pytest.raises(SimulatorError):
+        no_sim.posterior_predictive(5)
+    no_sim.storage.close()
+    ta.storage.close()
+
+
+def test_checkpoint_round_trip_and_crc_equal_the_jax_package(jax_store,
+                                                             tmp_path):
+    from abcsmc_tpu import crc32 as jcrc
+    from abcsmc_tpu_torch import compare, crc32
+
+    db, ja = jax_store
+    ta = _reader(db)
+    copy = tmp_path / "shipped.sqlite"
+    stamp = ta.checkpoint(copy)                       # a PathLike target
+    assert crc32.verify_checkpoint(copy) is True
+    assert jcrc.verify_checkpoint(copy) is True       # the same stamp format
+    assert stamp["crc32"] == f"{jcrc.file_crc(str(copy)):08x}"
+    assert stamp == jcrc.database_crc(str(copy)) | {"mtime": stamp["mtime"]}
+    assert crc32.file_crc(db) == jcrc.file_crc(db)
+    data = b"the quick brown fox"
+    assert crc32.partial_crc(0, data) == jcrc.partial_crc(0, data)
+    # the copy holds the store: same rows, KS 0 against the original
+    assert _schema(str(copy))[1:] == _schema(db)[1:]
+    assert max(v["ks"] for v in compare.compare(db, str(copy)).values()) == 0
+    # stamping the live database in place, and no stamp on request
+    assert ta.checkpoint(db)["path"] == db
+    assert crc32.verify_checkpoint(db) is True
+    assert ta.checkpoint(tmp_path / "plain.sqlite", stamp=False) == {}
+    assert not (tmp_path / "plain.sqlite.crc.json").exists()
+    # a corrupted copy fails the check
+    with open(copy, "r+b") as fh:
+        fh.seek(100)
+        fh.write(b"\x00\x01\x02\x03")
+    assert crc32.verify_checkpoint(copy) is False
+    ta.storage.close()
+    # a memory store is snapshotted, and the snapshot resumes
+    mem = _port(_cfg(n=300, sets=2))
+    with redirect_stderr(io.StringIO()):
+        mem.run_device(seed=1)
+    snap = str(tmp_path / "snap.sqlite")
+    mem.checkpoint(snap)
+    assert _schema(snap)[1] == [(0, 300, 300, 30), (1, 300, 300, 30)]
+    more = _port(_cfg(snap, n=300, sets=3))
+    with redirect_stderr(io.StringIO()):
+        more.run_device(seed=2)
+    assert _schema(snap)[1][-1] == (2, 300, 300, 30)
+    more.storage.close()
+
+
+def test_compare_cli_prints_what_the_jax_module_prints(jax_store, tmp_path):
+    db, _ = jax_store
+    other = str(tmp_path / "other.sqlite")
+    with redirect_stderr(io.StringIO()):
+        _port(_cfg(other, n=800)).run_device(seed=9)
+    outs = []
+    for mod in ("abcsmc_tpu_torch.compare", "abcsmc_tpu.compare"):
+        run = subprocess.run([sys.executable, "-m", mod, db, other],
+                             cwd=REPO, capture_output=True, text=True,
+                             timeout=300)
+        assert run.returncode == 0, run.stderr
+        outs.append(json.loads(run.stdout))
+    assert outs[0] == outs[1]
+    assert set(outs[0]) == {"p0", "p1", "p2"}
+    assert all(0 < v["ks"] < 0.5 for v in outs[0].values())
+    usage = subprocess.run([sys.executable, "-m", "abcsmc_tpu_torch.compare"],
+                           cwd=REPO, capture_output=True, text=True,
+                           timeout=120)
+    assert usage.returncode == 1 and "abcsmc_tpu_torch.compare" in usage.stdout
+
+
+def test_direct_builds_the_config_the_jax_engine_builds():
+    cfg = _cfg()
+    extra = dict(device_dispatch="sequential", row_block=64,
+                 resample_method="systematic")
+    ja = JAbcSmc.direct(cfg["parameters"], cfg["metrics"], [100, 200],
+                        smc_iterations=3, predictive_prior_fraction=0.1,
+                        noise="MULTIVARIATE", **extra)
+    ta = AbcSmc.direct(cfg["parameters"], cfg["metrics"], [100, 200],
+                       smc_iterations=3, predictive_prior_fraction=0.1,
+                       noise="MULTIVARIATE", device="cpu",
+                       dtype=torch.float64, **extra)
+    assert _plain(ta.config) == _plain(ja.config)
+    assert ta.device == torch.device("cpu") and ta.dtype == torch.float64
+    assert isinstance(ta.storage, MemoryStorage)
+    sized = AbcSmc.direct(cfg["parameters"], cfg["metrics"], 50,
+                          predictive_prior_size=7, device="cpu",
+                          simulator=make_linear_gaussian_simulator(
+                              NPAR, NMET, mix=_mix()))
+    with redirect_stderr(io.StringIO()):
+        sized.run_device(seed=0)
+    assert sized.posterior()[0].shape == (7, NPAR)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            AbcSmc.direct(cfg["parameters"], cfg["metrics"], 50,
+                          predictive_prior_size=7)
 
 
 def test_resolve_device_is_explicit():
@@ -217,7 +362,8 @@ def test_import_leaves_jax_out():
         "abcsmc_tpu_torch.ops._build, abcsmc_tpu_torch.reports, "
         "abcsmc_tpu_torch.cli, abcsmc_tpu_torch.ops.ranking, "
         "abcsmc_tpu_torch.native, abcsmc_tpu_torch.vis, "
-        "abcsmc_tpu_torch.models.ref_shim, abcsmc_tpu_torch.rank_precision\n"
+        "abcsmc_tpu_torch.models.ref_shim, abcsmc_tpu_torch.rank_precision, "
+        "abcsmc_tpu_torch.compare, abcsmc_tpu_torch.crc32\n"
         "bad = sorted(m for m in set(sys.modules) - before if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'abcsmc_tpu.')) or m == 'abcsmc_tpu')\n"
         "assert not bad, bad\n"
@@ -232,7 +378,7 @@ def test_import_leaves_jax_out():
 COPIED = ["errors.py", "config.py", "models/metrics.py",
           "storage/__init__.py", "storage/base.py", "storage/memstore.py",
           "storage/sqlite_store.py", "models/ref_shim.py", "native.py",
-          "vis.py"]
+          "vis.py", "crc32.py", "compare.py"]
 
 
 # the only differences allowed: the package name in import paths, and two
