@@ -42,15 +42,62 @@ def resolve_device(device) -> _torch.device:
     return dev
 
 
+# the counterparts of abcsmc_tpu's exports: Generation stands for
+# ShardedGeneration (one device); particle_mesh waits for multi-GPU
 from abcsmc_tpu_torch.config import ConfigError, SmcConfig, parse_config  # noqa: E402
 from abcsmc_tpu_torch.engine import AbcSmc  # noqa: E402
+from abcsmc_tpu_torch.models.metrics import Metric  # noqa: E402
+from abcsmc_tpu_torch.models.parameters import (  # noqa: E402
+    ContinuousUniformPrior,
+    DiscreteUniformPrior,
+    GaussianPrior,
+    Parameter,
+    ParameterSet,
+    PosteriorParameter,
+    PseudoParameter,
+)
+from abcsmc_tpu_torch.models.simulators import (  # noqa: E402
+    BUILTIN_SIMULATORS,
+    DeviceSimulator,
+    ExecSimulator,
+    PySimulator,
+    SharedLibSimulator,
+    Simulator,
+    make_dice_simulator,
+    make_gaussian_simulator,
+    make_linear_gaussian_simulator,
+    make_sir_simulator,
+)
+from abcsmc_tpu_torch.parallel import Generation  # noqa: E402
+from abcsmc_tpu_torch.storage import MemoryStorage, SQLiteStorage  # noqa: E402
 
 __version__ = "0.1.0"
 
 __all__ = [
     "AbcSmc",
-    "ConfigError",
     "SmcConfig",
+    "ConfigError",
     "parse_config",
+    "Parameter",
+    "GaussianPrior",
+    "ContinuousUniformPrior",
+    "DiscreteUniformPrior",
+    "PseudoParameter",
+    "PosteriorParameter",
+    "ParameterSet",
+    "Metric",
+    "Simulator",
+    "DeviceSimulator",
+    "PySimulator",
+    "ExecSimulator",
+    "SharedLibSimulator",
+    "BUILTIN_SIMULATORS",
+    "make_dice_simulator",
+    "make_gaussian_simulator",
+    "make_sir_simulator",
+    "make_linear_gaussian_simulator",
+    "Generation",
+    "MemoryStorage",
+    "SQLiteStorage",
     "resolve_device",
 ]

@@ -605,12 +605,14 @@ class AbcSmc:
         Routes (config ``device_dispatch``). ``"sequential"``: one eager
         step per set. ``"fused"``: a fresh run goes through
         ``Generation.run_scan`` (one ``(n, keep)``) or ``run_chain``
-        (varying sizes): where the step is capturable (a CUDA device,
-        INDEPENDENT noise) each same-shape bucket replays one CUDA graph
-        of the step per set; a MULTIVARIATE step reads a flag from the
-        device per rejection round and cannot be captured, so its chain
-        runs eagerly (said under ``verbose``, and every set's route is in
-        ``timings``). Every set is computed, and an ``nrmse_tolerance``
+        (varying sizes): on a CUDA device each same-shape bucket replays
+        one CUDA graph of the step per set, MULTIVARIATE noise included
+        (its rejection loop runs a fixed block of rounds in the graph; the
+        count is read once per set after the replay, and a set whose rows
+        are not all accepted within the block finishes its rounds eagerly
+        before the next set); on the CPU the chain runs eagerly (said under
+        ``verbose``, and every set's route is in ``timings``). Every set is
+        computed, and an ``nrmse_tolerance``
         cuts the mirror at the first converged set afterwards: the stored
         rows are the sequential run's. ``"auto"`` takes the fused route
         only where at least 4 sets would replay a graph and the full
@@ -690,10 +692,8 @@ class AbcSmc:
                 f"run_device: fused dispatch ({route}): "
                 + ("same-shape sets replay one CUDA graph of the step\n"
                    if gen.capturable else
-                   "the step is not capturable ("
-                   + ("MULTIVARIATE noise reads a flag per rejection round"
-                      if self.device.type == "cuda" else "no CUDA device")
-                   + "), running the eager chain\n"))
+                   "the step is not capturable (no CUDA device), running "
+                   "the eager chain\n"))
 
         t_dispatch0 = time.perf_counter()
         pending_serials = None
@@ -731,9 +731,10 @@ class AbcSmc:
             entry["route"] = inf["route"]
             entry["device_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
             entry["simulate_ms"] = sim[0].elapsed_time(sim[1]) if sim else None
-            # rounds of the MULTIVARIATE rejection loop: each one read a
-            # flag from the device in the middle of the step
+            # the MULTIVARIATE rejection loop's count (read once per set),
+            # and whether its rounds ran past the block a replay holds
             entry["mvn_rounds"] = inf["mvn_rounds"]
+            entry["mvn_finished_eagerly"] = inf["mvn_finished_eagerly"]
             if inf["box_cox_lambdas"] is not None:
                 entry["box_cox_lambdas"] = _host(
                     inf["box_cox_lambdas"]).tolist()
@@ -748,6 +749,7 @@ class AbcSmc:
             "graph_captures": gen.graph_captures,
             "graph_replays": gen.graph_replays,
             "capture_s": gen.capture_seconds,
+            "mvn_eager_finishes": gen.mvn_eager_finishes,
         })
         reports.report_convergence_data(self, t_first + len(fetched) - 1)
         return self
@@ -820,6 +822,7 @@ class AbcSmc:
             inf = {"route": "eager", "events": ev,
                    "sim_events": res.sim_events,
                    "mvn_rounds": res.mvn_rounds,
+                   "mvn_finished_eagerly": res.mvn_finished_eagerly,
                    "box_cox_lambdas": res.box_cox_lambdas}
             info.append(inf)
             if split_t:
@@ -833,8 +836,10 @@ class AbcSmc:
                 if converged:
                     break
                 draws = gen.draw_proposal(generator, n_next, draws)
+                finishes = gen.mvn_eager_finishes
                 params, seeds, inf["mvn_rounds"] = gen.propose(
                     *state, n_next, draws)
+                inf["mvn_finished_eagerly"] = gen.mvn_eager_finishes > finishes
                 del draws
             else:
                 tuples.append((params, seeds, res.metrics, res.survivor_idx,

@@ -8,8 +8,11 @@ takes unit uniforms ``u`` and maps them exactly as
 ``jax.random.uniform(k_noise, shape)`` reproduces the JAX perturbation.
 The rejection loops (``noise_independent(method="rejection")`` and
 :meth:`ParameterSet.noise_multivariate`) take their first round's normals
-as an input and draw later rounds from a generator. The thin wrappers
-(:meth:`Parameter.sample`, :meth:`ParameterSet.sample_priors`,
+as an input; every later round's normals are a counter hash of (retry
+seed, round, row, column) (:class:`RetryNormals`), so a round's draws do
+not depend on how many rounds ran before it. The loop runs in blocks of
+rounds with no host read inside a block (:class:`RejectionLoop`). The thin
+wrappers (:meth:`Parameter.sample`, :meth:`ParameterSet.sample_priors`,
 :meth:`ParameterSet.perturb_independent`,
 :meth:`ParameterSet.perturb_multivariate`) draw from an explicit
 ``torch.Generator``.
@@ -31,8 +34,15 @@ import torch
 
 from abcsmc_tpu_torch.config import DistType, NumType, ParameterSpec
 from abcsmc_tpu_torch.errors import ConfigError
+from abcsmc_tpu_torch.models.simulators import _box_muller, _seed_base
+from abcsmc_tpu_torch.ops.pls import _fmix32
 
 _LOG_2PI = math.log(2.0 * math.pi)
+#: rounds of a rejection loop between two host reads of its count: the
+#: shipped MULTIVARIATE fits need 7-18 rounds early in a fit and 1-8 later
+#: (PERF.md section 5), so most steps end inside the first block
+REJECTION_BLOCK = 16
+_RETRY_SALT = 0x27D4EB2F
 
 
 @functools.lru_cache(maxsize=256)
@@ -60,6 +70,9 @@ class Parameter:
 
     def recast(self, x):
         return x
+
+    def pdf(self, x):
+        return torch.exp(self.log_pdf(x))
 
     def valid(self, x):
         return torch.isfinite(self.log_pdf(x))
@@ -386,6 +399,16 @@ class ParameterSet:
         cols = [self.params[i].valid(theta[:, i]) for i in range(self.npar)]
         return torch.stack(cols, dim=1)
 
+    def recast_valid_mask(self, theta):
+        """:meth:`valid_mask` of values already recast (INT columns
+        integral): finite and inside each parameter's closed
+        :meth:`Parameter.value_bounds`, in four elementwise ops for all
+        columns (a rejection round runs it on every proposal)."""
+        self._require_all_priors("validity")
+        vlo, vhi = (_const(col, theta.dtype, theta.device) for col in
+                    zip(*(p.value_bounds() for p in self.params)))
+        return torch.isfinite(theta) & (theta >= vlo) & (theta <= vhi)
+
     def noise_independent(self, mu, doubled_variance, u,
                           method: str = "inverse_cdf",
                           max_retries: int = 1000,
@@ -401,21 +424,27 @@ class ParameterSet:
         Converged columns (dv == 0) keep ``mu``.
 
         ``method="rejection"``: the reference's loop (src/AbcUtil.cpp:145-158)
-        per cell: ``u`` are the first round's standard normals; each later
-        round draws its normals from ``generator``, up to ``max_retries``
-        rounds in all; cells never accepted fall back to the prior mean."""
+        per cell: ``u`` are the first round's standard normals; the later
+        rounds' are :class:`RetryNormals` of a seed drawn from
+        ``generator``, up to ``max_retries`` rounds in all; cells never
+        accepted fall back to the prior mean."""
         self._require_all_priors("noise")
         dtype, device = mu.dtype, mu.device
         sigma = torch.sqrt(torch.as_tensor(doubled_variance, dtype=dtype,
                                            device=device))
         if method == "rejection":
+            if generator is None:
+                raise ValueError(
+                    "rejection noise needs a generator for its retry seed")
             prior_means = torch.as_tensor(self.means(), dtype=dtype,
                                           device=device)
-            return self._reject(
+            loop = RejectionLoop(
                 lambda eps: self.recast(mu + eps * sigma[None, :]),
-                self.valid_mask, u.to(dtype), max_retries, generator,
+                self.recast_valid_mask, u.to(dtype), max_retries,
+                draw_retry_seed(generator),
                 torch.broadcast_to(prior_means[None, :], mu.shape),
-            )[0]
+            )
+            return loop.finish()[1]
         if method != "inverse_cdf":
             raise ValueError(f"unknown noise method {method!r}")
         bounds = [p.noise_support() + p.value_bounds() for p in self.params]
@@ -440,54 +469,163 @@ class ParameterSet:
         return self.noise_independent(mu, doubled_variance, u)
 
     def noise_multivariate(self, mu, chol_lower, eps, max_retries: int = 1000,
-                           generator: torch.Generator | None = None):
+                           retry_seed=None):
         """Truncated multivariate-normal perturbation
         (src/AbcUtil.cpp:122-143): ``x = recast(mu + eps @ L^T)``, a row
         accepted only when every column is valid. ``eps`` are the first
-        round's standard normals [n, P]; each later round draws from
-        ``generator``, up to ``max_retries`` rounds in all (the reference
-        loops forever); rows never accepted fall back to ``mu``. One host
-        read of the "all accepted" flag per round. Returns (x, rounds
-        drawn)."""
+        round's standard normals [n, P]; round r >= 1 takes
+        :class:`RetryNormals` of ``retry_seed`` (a uint32 value), up to
+        ``max_retries`` rounds in all (the reference loops forever); rows
+        never accepted fall back to ``mu``. One host read per block of
+        :data:`REJECTION_BLOCK` rounds (:meth:`multivariate_rejection` runs
+        a block with none).
+        Returns (x, the JAX loop's counter: the first round after which
+        every row is accepted, capped at ``max_retries``)."""
+        loop = self.multivariate_rejection(mu, chol_lower, eps, max_retries,
+                                           retry_seed)
+        rounds, x = loop.finish()
+        return x, rounds
+
+    def multivariate_rejection(self, mu, chol_lower, eps,
+                               max_retries: int = 1000, retry_seed=None,
+                               block: int = REJECTION_BLOCK):
+        """The first block of :meth:`noise_multivariate`'s rounds, with no
+        host read: a :class:`RejectionLoop` on the device. A factor that
+        holds a NaN (a collapsed column, :func:`setup_mvn_sampler`) accepts
+        no proposal, so its count reads ``max_retries`` at once."""
         self._require_all_priors("noise")
         L = torch.as_tensor(chol_lower).to(mu)
-        return self._reject(
+        return RejectionLoop(
             lambda e: self.recast(mu + e @ L.T),
-            lambda x: self.valid_mask(x).all(dim=1, keepdim=True),
-            eps.to(mu.dtype), max_retries, generator, mu,
+            lambda x: self.recast_valid_mask(x).all(dim=1, keepdim=True),
+            eps.to(mu.dtype), max_retries, retry_seed, mu, block,
+            hopeless=torch.isnan(L).any(),
         )
 
     def perturb_multivariate(self, generator: torch.Generator, mu,
                              chol_lower, max_retries: int = 1000):
-        """:meth:`noise_multivariate` with every round's normals drawn from
-        ``generator``."""
+        """:meth:`noise_multivariate` with the first round's normals and the
+        retry seed drawn from ``generator``."""
         eps = torch.randn(mu.shape, generator=generator, device=mu.device,
                           dtype=mu.dtype)
         return self.noise_multivariate(mu, chol_lower, eps, max_retries,
-                                       generator)[0]
+                                       draw_retry_seed(generator))[0]
 
-    @staticmethod
-    def _reject(propose, accept, eps, max_retries, generator, fallback):
-        """The bounded rejection loop shared by both noise kinds: keep the
-        first accepted proposal per cell (or row, where ``accept`` returns
-        [n, 1]); ``fallback`` where none was accepted. Returns (values,
-        rounds drawn)."""
-        vals = propose(eps)
-        accepted = accept(vals)
-        attempts = 1
-        while attempts < max_retries and not bool(accepted.all()):
-            if generator is None:
-                raise ValueError(
-                    "rejection noise needs a generator for its retry rounds"
-                )
-            eps = torch.randn(eps.shape, generator=generator,
-                              device=eps.device, dtype=eps.dtype)
-            prop = propose(eps)
-            ok = accept(prop)
-            vals = torch.where(~accepted & ok, prop, vals)
-            accepted = accepted | ok
-            attempts += 1
-        return torch.where(accepted, vals, fallback), attempts
+
+def draw_retry_seed(generator: torch.Generator):
+    """A 0-d int64 uint32 value on ``generator.device``: the retry seed of
+    one rejection loop."""
+    return torch.randint(0, 2**32, (), generator=generator,
+                         device=generator.device)
+
+
+class RetryNormals:
+    """The standard normals [n, P] of a rejection loop's retry rounds r >= 1:
+    a counter hash of (seed, round, row, column), so round r's draws are
+    the same however many rounds ran before it, in one block or several.
+    A bijective murmur3 mix of (seed, row) per row (distinct rows get
+    distinct words) and a mixed key per (seed, round, column) are mixed
+    once more per cell, two words a cell, into the simulators' Box-Muller
+    transform in float64. ``seed`` is a uint32 value (an int or a 0-d
+    integer tensor); the normals are on ``device``. The integer hash gives
+    the same bits on every device."""
+
+    def __init__(self, seed, n: int, ncols: int, dtype, device):
+        self.key = _seed_base(torch.as_tensor(seed, device=device),
+                              _RETRY_SALT)
+        self.rows = _fmix32(torch.arange(n, dtype=torch.int64,
+                                         device=self.key.device) ^ self.key)
+        self.cols = torch.arange(2 * ncols, dtype=torch.int64,
+                                 device=self.key.device)
+        self.ncols, self.dtype = ncols, dtype
+
+    def round_keys(self, start: int, stop: int):
+        """[stop - start, 2P] words of rounds start .. stop - 1."""
+        r = torch.arange(start, stop, dtype=torch.int64,
+                         device=self.key.device)
+        return _fmix32(_fmix32(self.key ^ r)[:, None] ^ self.cols[None, :])
+
+    def normals(self, keys):
+        """The normals of the round whose :meth:`round_keys` row is
+        ``keys`` [2P]."""
+        h = _fmix32(self.rows[:, None] ^ keys[None, :])             # [n, 2P]
+        return _box_muller(h[:, :self.ncols], h[:, self.ncols:], self.dtype)
+
+
+class RejectionLoop:
+    """The bounded rejection loop shared by both noise kinds, run in blocks
+    of rounds with no host read inside a block.
+
+    ``propose(eps)`` maps a round's normals to proposals, ``accept`` gives
+    the cells (or, as [n, 1], the rows) they validate. Each cell keeps its
+    first accepted proposal; ``fallback`` stands where none was accepted
+    after ``max_retries`` rounds. Round 0 takes ``eps``, round r >= 1
+    :class:`RetryNormals` of ``seed``. Construction runs the first block,
+    rounds 0 .. min(``block``, ``max_retries``) - 1, and leaves on the
+    device the 0-d int64 :attr:`count`: the JAX loop's counter (the first
+    round after which every cell is accepted, capped at ``max_retries``;
+    ``max_retries`` at once where the 0-d bool ``hopeless`` is set), or -1
+    where a cell is still rejected and rounds remain. :meth:`finish` reads
+    it and runs further blocks where it is -1. Since a round's normals do
+    not depend on the rounds before it, any block size gives the same
+    values and count."""
+
+    def __init__(self, propose, accept, eps, max_retries: int, seed,
+                 fallback, block: int = REJECTION_BLOCK, hopeless=None):
+        self.propose, self.accept = propose, accept
+        self.max_retries = max(int(max_retries), 1)
+        self.fallback = fallback
+        self.block, self.hopeless = max(int(block), 1), hopeless
+        self.stream = (None if seed is None or self.max_retries == 1 else
+                       RetryNormals(seed, eps.shape[0], eps.shape[1],
+                                    eps.dtype, eps.device))
+        self.vals = propose(eps)
+        self.accepted = accept(self.vals)
+        self.first = torch.zeros(self.accepted.shape, dtype=torch.int64,
+                                 device=eps.device)
+        self.rounds = 1
+        self._run_rounds(min(self.block, self.max_retries))
+
+    def _run_rounds(self, stop: int):
+        """Rounds ``self.rounds`` .. ``stop`` - 1, then the count."""
+        start = self.rounds
+        if start < stop and self.stream is None:
+            raise ValueError("a rejection loop needs a retry seed for its "
+                             "later rounds")
+        keys = self.stream.round_keys(start, stop) if start < stop else None
+        for r in range(start, stop):
+            prop = self.propose(self.stream.normals(keys[r - start]))
+            ok = self.accept(prop)
+            new = ok & ~self.accepted
+            self.vals = torch.where(new, prop, self.vals)
+            self.first = self.first.masked_fill(new, r)
+            self.accepted = self.accepted | ok
+        self.rounds = max(stop, start)
+        if self.rounds >= self.max_retries:
+            out = torch.full((), self.max_retries, dtype=torch.int64,
+                             device=self.first.device)
+        elif self.hopeless is not None:
+            # max_retries where hopeless, else -1
+            out = self.hopeless.to(torch.int64) * (self.max_retries + 1) - 1
+        else:
+            out = torch.full((), -1, dtype=torch.int64,
+                             device=self.first.device)
+        self.count = torch.where(self.accepted.all(), self.first.max() + 1,
+                                 out)
+
+    def values(self):
+        """The cells' values after the rounds run so far."""
+        return torch.where(self.accepted, self.vals, self.fallback)
+
+    def finish(self):
+        """Read the count (one host read per block) and run further blocks
+        while it is -1. Returns (count, values); this object then holds
+        the finished state."""
+        count = int(self.count)
+        while count < 0:
+            self._run_rounds(min(self.rounds + self.block, self.max_retries))
+            count = int(self.count)
+        return count, self.values()
 
 
 def truncated_normal_from_uniform(u, a, b):

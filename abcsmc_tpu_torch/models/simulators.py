@@ -229,8 +229,13 @@ def _bits_from_base(base, ncols: int, stride: int, offset: int,
 
 
 def _normals_from_base(base, ncols: int, dtype, first_col: int = 0):
-    h1 = _bits_from_base(base, ncols, 2, 0, first_col)
-    h2 = _bits_from_base(base, ncols, 2, 1, first_col)
+    return _box_muller(_bits_from_base(base, ncols, 2, 0, first_col),
+                       _bits_from_base(base, ncols, 2, 1, first_col), dtype)
+
+
+def _box_muller(h1, h2, dtype):
+    """Standard normals from two arrays of 32-bit words, in float64, cast
+    to ``dtype``."""
     u1 = (h1.to(torch.float64) + 1.0) / 2.0**32       # (0, 1]
     u2 = h2.to(torch.float64) / 2.0**32               # [0, 1)
     z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)

@@ -9,9 +9,9 @@ The van der Voet sign stream is counter-hashed (murmur3 finalizer) and
 bit-equal to the JAX one. CPU torch has no ``>>`` on uint32, so the hash
 runs on int64 tensors holding uint32 values, with every product masked back
 to 32 bits. Its seed is an input (a uint32 value), where the JAX functions
-take a PRNG key and derive it with ``vdv_seed``.
-
-Not yet ported: ``cv_loo`` and ``cv_lso`` (library-only API).
+take a PRNG key and derive it with ``vdv_seed``. Likewise the random
+test masks of :func:`cv_lso` are an input; :func:`cv_lso_random` draws them
+from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -177,6 +177,56 @@ def _per_row_sq_errors(R, Q, x_val, y_val):
 def _sse_per_component(R, Q, x_val, y_val):
     """[A, p] SSE of the cumulative-component predictions on held-out rows."""
     return _per_row_sq_errors(R, Q, x_val, y_val).sum(dim=0)
+
+
+def cv_loo(x, y, ncomp: int):
+    """Leave-one-out validation error matrix [A, p] (upstream PLS 'LOO').
+
+    Each held-out fit is a rank-1 downdate of the full Gram matrices
+    (X'X - x_i x_i', X'Y - x_i y_i'), fitted by the Gram PLS: one pass over
+    the data, then n fits of m x m matrices."""
+    x = torch.as_tensor(x)
+    y = _as_2d(y).to(x)
+    xtx = x.T @ x
+    xty = x.T @ y
+    err = torch.zeros((int(ncomp), y.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    for xi, yi in zip(x, y):
+        R, _, Q = _fit_gram(xtx - torch.outer(xi, xi),
+                            xty - torch.outer(xi, yi), int(ncomp))
+        err += _sse_per_component(R, Q, xi[None, :], yi[None, :])
+    return err
+
+
+def cv_lso(x, y, ncomp: int, test_masks):
+    """Leave-some-out validation error matrix [A, p] (upstream PLS 'LSO'):
+    one train/test partition per row of ``test_masks`` [num_splits, n]
+    (True = held out), each fitted by a masked Gram downdate and scored on
+    its held-out rows. JAX draws the masks as ``bernoulli(k, test_fraction,
+    (n,))`` for ``k in split(key, num_splits)``."""
+    x = torch.as_tensor(x)
+    y = _as_2d(y).to(x)
+    xtx = x.T @ x
+    xty = x.T @ y
+    err = torch.zeros((int(ncomp), y.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    for test in torch.as_tensor(test_masks, device=x.device):
+        tmask = test.to(x.dtype)[:, None]
+        xt = x * tmask
+        yt = y * tmask
+        R, _, Q = _fit_gram(xtx - xt.T @ xt, xty - xt.T @ yt, int(ncomp))
+        err += _sse_per_component(R, Q, xt, yt)
+    return err
+
+
+def cv_lso_random(generator: torch.Generator, x, y, ncomp: int,
+                  num_splits: int = 10, test_fraction: float = 0.3):
+    """:func:`cv_lso` with ``num_splits`` Bernoulli(``test_fraction``) test
+    masks drawn from ``generator``."""
+    n = torch.as_tensor(x).shape[0]
+    masks = torch.rand((num_splits, n), generator=generator,
+                       device=generator.device) < test_fraction
+    return cv_lso(x, y, ncomp, masks)
 
 
 def _vdv_pvalues(sq_err, seed, n_perm: int, gidx=None):

@@ -147,6 +147,17 @@ def ordered(values):
     return torch.argsort(_t(values), stable=True)
 
 
+def logit(p):
+    """log(p / (1-p)) (AbcUtil.h:45)."""
+    p = _t(p)
+    return torch.log(p / (1.0 - p))
+
+
+def logistic(x):
+    """1 / (1 + exp(-x)) (AbcUtil.h:46)."""
+    return 1.0 / (1.0 + torch.exp(-_t(x)))
+
+
 def ranks(values):
     """ranks[i] = position of values[i] in the stable ascending order."""
     return torch.argsort(ordered(values), stable=True)

@@ -81,9 +81,18 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
              programs, launches; a 30-set schedule of 300, 500, 500, 750,
              then 1,000 rows (dice, INDEPENDENT noise) through run_chain
              with an nrmse_tolerance that cuts inside the 1,000-row bucket;
-             sir (MULTIVARIATE) under "fused": the eager chain, said so,
-             equal to sequential; the kernel inside a replayed graph
-             against plain;
+             sir and dice (MULTIVARIATE noise) as shipped under
+             "sequential" and "fused": the MVN step captured once and
+             replayed, stored rows, ranks and weights bit-equal; dice
+             sequential with a rejection block of 1 round (a host read per
+             round) against the default block: the eager price of the
+             block, the same rows; dice fused with a block of 2 rounds
+             (every replayed set finishes its rounds eagerly after the
+             replay), bit-equal too, with the kernel inside each replayed
+             MVN graph held against plain; per example the eager and the
+             replayed set ms, the rejection rounds per set and the sets
+             finished eagerly; the kernel inside a replayed graph against
+             plain;
 12. surfaces - on the dengue store of phase 3: checkpoint to a new path,
              crc32.verify_checkpoint, compare() of the store with its
              checkpoint (KS 0), ess in (1, keep], posterior_summary medians
@@ -669,8 +678,10 @@ def fit_report(run, cfg, truth, must_beat):
               f"not closer to {truth[j]} than the prior mean {prior[j]}")
     return {
         "ncomp": ncomp, "set_ms": [e["device_ms"] for e in gens],
+        "routes": [e["route"] for e in gens],
         "simulate_ms": [e["simulate_ms"] for e in gens],
         "mvn_rounds": [e["mvn_rounds"] for e in gens],
+        "mvn_finished_eagerly": [e["mvn_finished_eagerly"] for e in gens],
         "posterior_mean": post.tolist(), "truth": truth.tolist(),
         "prior_mean": prior.tolist(),
         "phases": [e for e in run.timings
@@ -1182,6 +1193,7 @@ def phase_hbm_scale():
 # --------------------------------------------------------------------------- #
 
 FUSED_EXAMPLES = ("dengue_surrogate", "ricker", "gk", "mg1")
+MVN_FUSED = ("sir", "dice")        # MULTIVARIATE noise as shipped
 CHAIN_SIZES = [300, 500, 500, 750, 1000]
 CHAIN_SETS = 30
 
@@ -1195,18 +1207,26 @@ def chain_config(**extra):
     return cfg
 
 
-def routed_run(cfg, dispatch, seed=0):
+def routed_run(cfg, dispatch, seed=0, rejection_block=None):
     """``run_device`` of ``cfg`` (in-memory store) under one
-    ``device_dispatch``; returns (engine, wall s, kernel launches, stderr)."""
-    from abcsmc_tpu_torch import AbcSmc
+    ``device_dispatch``, with the MULTIVARIATE rejection block of
+    ``Generation`` set to ``rejection_block`` rounds where given; returns
+    (engine, wall s, kernel launches, stderr)."""
+    from abcsmc_tpu_torch import AbcSmc, Generation
     from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
 
     cfg = dict(cfg, device_dispatch=dispatch, database_filename="")
+    block = Generation.rejection_block
+    if rejection_block is not None:
+        Generation.rejection_block = rejection_block
     mixture_logsumexp.launches = 0
     err = io.StringIO()
     t0 = time.perf_counter()
-    with redirect_stderr(err):
-        run = AbcSmc(cfg).run_device(seed=seed, verbose=True)
+    try:
+        with redirect_stderr(err):
+            run = AbcSmc(cfg).run_device(seed=seed, verbose=True)
+    finally:
+        Generation.rejection_block = block
     return (run, time.perf_counter() - t0, mixture_logsumexp.launches,
             err.getvalue())
 
@@ -1238,9 +1258,73 @@ def route_report(run):
     return {"set_ms": [e["device_ms"] for e in gens],
             "routes": [e["route"] for e in gens],
             "ncomp": [e["ncomp_used"] for e in gens],
+            "mvn_rounds": [e["mvn_rounds"] for e in gens],
+            "mvn_finished_eagerly": [e["mvn_finished_eagerly"]
+                                     for e in gens],
             **{k: ph[k] for k in ("route", "dispatch_s", "mirror_s",
                                   "programs", "graph_captures",
-                                  "graph_replays", "capture_s")}}
+                                  "graph_replays", "capture_s",
+                                  "mvn_eager_finishes")}}
+
+
+def set_ms_by_route(rep):
+    """The set milliseconds of a route report, eager sets and replayed sets
+    apart (set 0 aside: it simulates a first population)."""
+    out = {"eager": [], "replay": []}
+    for t, (ms, route) in enumerate(zip(rep["set_ms"], rep["routes"])):
+        if t > 0:
+            out[route].append(ms)
+    return out
+
+
+class ReplayedKernelCheck:
+    """Holds the kernel inside every replayed graph against its plain
+    version: the weight stage's inputs and output as the capture recorded
+    them are the graph's own tensors, so after each replay they hold that
+    set's values; the plain version runs on those inputs and is compared
+    with the output (synchronising once per set: a checked run is not a
+    timed one)."""
+
+    def __enter__(self):
+        from abcsmc_tpu_torch.ops import weights
+        from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp_reference
+        from abcsmc_tpu_torch.parallel.generation import Generation
+
+        self.errs = []
+        self._saved = (weights.log_kernel_mixture_density,
+                       Generation._capture, Generation._replay)
+        density, capture, replay = self._saved
+        recorded = []
+
+        def recording_density(*args):
+            out = density(*args)
+            recorded.append((args, out))
+            return out
+
+        def recording_capture(gen, *args, **kw):
+            cap = capture(gen, *args, **kw)
+            cap.kernel_record = recorded[-1]
+            return cap
+
+        def checked_replay(gen, cap, *args, **kw):
+            res = replay(gen, cap, *args, **kw)
+            (surv, prev, prev_lw, prev_dv), out = cap.kernel_record
+            a, b, log_norm = weights._prep_scaled(surv, prev, prev_dv)
+            ref = mixture_logsumexp_reference(a, b, prev_lw.to(a)) + log_norm
+            self.errs.append(float((out - ref).abs().max()))
+            return res
+
+        weights.log_kernel_mixture_density = recording_density
+        Generation._capture = recording_capture
+        Generation._replay = checked_replay
+        return self
+
+    def __exit__(self, *exc):
+        from abcsmc_tpu_torch.ops import weights
+        from abcsmc_tpu_torch.parallel.generation import Generation
+
+        (weights.log_kernel_mixture_density, Generation._capture,
+         Generation._replay) = self._saved
 
 
 def replayed_kernel_vs_plain():
@@ -1354,26 +1438,92 @@ def phase_fused():
           "launches": {"sequential": l_seq, "fused": l_fused},
           "sequential_30_sets": route_report(free), "fused": rep})
 
-    # a MULTIVARIATE step is not capturable: the eager chain, said so
-    cfg = json.loads((REPO / "examples" / "sir.json").read_text())
-    seq, wall_seq, l_seq, _ = routed_run(cfg, "sequential")
-    fused, wall_fused, l_fused, said = routed_run(cfg, "fused")
-    total += l_seq + l_fused
-    diff = stored_diff(seq, fused)
-    rep = route_report(fused)
-    check(diff == 0.0 and rep["graph_captures"] == 0
-          and set(rep["routes"]) == {"eager"} and rep["route"] == "scan"
-          and "running the eager chain" in said and l_fused == l_seq,
-          f"sir under fused: diff {diff}, {rep}, said {said[:200]!r}")
-    emit({"phase": "fused", "example": "sir", "noise": "MULTIVARIATE",
-          "route_said": [ln for ln in said.splitlines()
-                         if ln.startswith("run_device:")],
-          "fused_vs_sequential_max_abs_diff": diff,
-          "wall_s": {"sequential": wall_seq, "fused": wall_fused},
-          "launches": {"sequential": l_seq, "fused": l_fused},
-          "fused": rep, "kernel_replayed_max_abs_err": kernel_errs,
+    total += fused_mvn(kernel_errs)
+    emit({"phase": "fused", "kernel_replayed_max_abs_err": kernel_errs,
           "phase_wall_s": time.perf_counter() - t_phase})
     return total, kernel_errs
+
+
+def fused_mvn(kernel_errs):
+    """The fused phase's MULTIVARIATE part; returns its kernel launches and
+    adds the error of the kernel inside the replayed MVN graphs to
+    ``kernel_errs``."""
+    total = 0
+    # the rejection loop runs a fixed block of rounds inside the graph and
+    # its count is read once per set
+    for name in MVN_FUSED:
+        cfg = json.loads((REPO / "examples" / f"{name}.json").read_text())
+        n_sets = cfg["smc_iterations"]
+        seq, wall_seq, l_seq, _ = routed_run(cfg, "sequential")
+        fused, wall_fused, l_fused, said = routed_run(cfg, "fused")
+        total += l_seq + l_fused
+        diff = stored_diff(seq, fused)
+        rep, rep_seq = route_report(fused), route_report(seq)
+        planned = sum(r == "replay" for r in rep["routes"])
+        check(diff == 0.0 and rep["graph_captures"] == 1
+              and rep["graph_replays"] == planned >= n_sets - 3
+              and "replay one CUDA graph" in said
+              # the fused route's last set makes an unused proposal
+              and rep["mvn_rounds"][:-1] == rep_seq["mvn_rounds"][:-1]
+              and l_fused == l_seq == 2 * (n_sets - 1),
+              f"{name} under fused: diff {diff}, {rep}, launches {l_seq}, "
+              f"{l_fused}, said {said[:200]!r}")
+        emit({"phase": "fused", "example": name, "noise": "MULTIVARIATE",
+              "sets": n_sets, "fused_vs_sequential_max_abs_diff": diff,
+              "wall_s": {"sequential": wall_seq, "fused": wall_fused},
+              "launches": {"sequential": l_seq, "fused": l_fused},
+              "set_ms": {"sequential": set_ms_by_route(rep_seq)["eager"],
+                         "fused": set_ms_by_route(rep)},
+              "mvn_rounds": rep["mvn_rounds"],
+              "sets_finished_eagerly": rep["mvn_eager_finishes"],
+              "sequential": rep_seq, "fused": rep})
+
+    # what the block costs an eager set: dice sequential with one round per
+    # block (a host read per round, as before the block existed) against
+    # the default block; the same rows
+    from abcsmc_tpu_torch import Generation
+
+    cfg = json.loads((REPO / "examples" / "dice.json").read_text())
+    blocks = (1, Generation.rejection_block) * 2
+    runs = [routed_run(cfg, "sequential", rejection_block=b) for b in blocks]
+    total += sum(r[2] for r in runs)
+    for run, *_ in runs[1:]:
+        check(stored_diff(runs[0][0], run) == 0.0,
+              f"dice: rejection blocks {blocks} give other rows")
+    price = {f"block_{b}": [] for b in blocks}
+    for b, (run, *_) in zip(blocks, runs):
+        price[f"block_{b}"].append(set_ms_by_route(route_report(run))["eager"])
+    emit({"phase": "fused", "example": "dice", "eager_block_price": price})
+
+    # the eager finish forced: a rejection block of 2 rounds, where dice's
+    # replayed sets need 6-8; the same rows as the sequential run's default
+    # block, and the kernel inside each replayed MVN graph against plain
+    cfg = json.loads((REPO / "examples" / "dice.json").read_text())
+    n_sets = cfg["smc_iterations"]
+    seq, _, l_seq, _ = routed_run(cfg, "sequential")
+    with ReplayedKernelCheck() as kcheck:
+        forced, wall_forced, l_forced, _ = routed_run(cfg, "fused",
+                                                      rejection_block=2)
+    total += l_seq + l_forced
+    diff = stored_diff(seq, forced)
+    rep = route_report(forced)
+    finished = [f for f, r in zip(rep["mvn_finished_eagerly"],
+                                  rep["routes"]) if r == "replay"]
+    check(diff == 0.0 and rep["graph_replays"] >= n_sets - 3
+          and any(finished)
+          and rep["mvn_eager_finishes"] == sum(rep["mvn_finished_eagerly"])
+          and l_forced == l_seq
+          and len(kcheck.errs) == rep["graph_replays"]
+          and max(kcheck.errs) <= TOL,
+          f"dice, block 2: diff {diff}, {rep}, kernel {kcheck.errs}")
+    kernel_errs["replayed_mvn_graph/dice"] = max(kcheck.errs, default=math.inf)
+    emit({"phase": "fused", "example": "dice", "rejection_block": 2,
+          "fused_vs_sequential_max_abs_diff": diff,
+          "replayed_sets_finished_eagerly": sum(finished),
+          "replayed_sets": len(finished), "wall_s": wall_forced,
+          "set_ms": set_ms_by_route(rep), "mvn_rounds": rep["mvn_rounds"],
+          "kernel_in_replayed_mvn_graph_max_abs_err": kcheck.errs})
+    return total
 
 
 def phase_surfaces(run):

@@ -114,6 +114,40 @@ def test_run_device_matches_jax_engine_in_law(tmp_path, capfd):
     assert "Convergence data for predictive priors:" in text
 
 
+# A fixed-seed run of the port (CPU, float64, in-memory store): the CRC-32
+# of every stored set's parameters, metrics, seeds and posterior ranks.
+# Pinned on torch 2.13.0+cpu; any change to a draw, the ranking, the
+# weights or the proposal (the MULTIVARIATE retry stream included) moves it.
+PINNED_CRC = {"INDEPENDENT": "6a5009be", "MULTIVARIATE": "ee6c277e"}
+
+
+@pytest.mark.parametrize("noise", sorted(PINNED_CRC))
+def test_pinned_port_run(noise):
+    from abcsmc_tpu_torch import crc32
+    from abcsmc_tpu_torch.models.simulators import make_dice_simulator
+
+    cfg = {"smc_iterations": 4, "num_samples": 400,
+           "predictive_prior_size": 40, "noise": noise,
+           "parameters": [
+               {"name": n, "dist_type": "UNIFORM", "num_type": "INT",
+                "par1": 1, "par2": 100} for n in ("ndice", "sides")],
+           "metrics": [{"name": "sum", "num_type": "INT", "value": 44},
+                       {"name": "sd", "num_type": "FLOAT",
+                        "value": 2.39925}]}
+    a = AbcSmc(cfg, device="cpu", dtype=torch.float64,
+               simulator=make_dice_simulator(max_dice=100))
+    with redirect_stderr(io.StringIO()):
+        a.run_device(seed=12345)
+    crc = 0
+    for g in a.storage.read_generations():
+        for arr in (g.params, g.metrics, g.seeds, g.posterior_ranks):
+            crc = crc32.partial_crc(crc, np.ascontiguousarray(arr).tobytes())
+    assert f"{crc:08x}" == PINNED_CRC[noise], torch.__version__
+    rounds = [e["mvn_rounds"] for e in a.timings
+              if e["op"] == "device_generation"]
+    assert (rounds == [12, 8, 5, 0]) == (noise == "MULTIVARIATE")
+
+
 def test_run_device_deterministic_and_memory_store():
     a = _port(_cfg(n=600, sets=2))
     b = _port(_cfg(n=600, sets=2))
@@ -363,7 +397,8 @@ def test_import_leaves_jax_out():
         "abcsmc_tpu_torch.cli, abcsmc_tpu_torch.ops.ranking, "
         "abcsmc_tpu_torch.native, abcsmc_tpu_torch.vis, "
         "abcsmc_tpu_torch.models.ref_shim, abcsmc_tpu_torch.rank_precision, "
-        "abcsmc_tpu_torch.compare, abcsmc_tpu_torch.crc32\n"
+        "abcsmc_tpu_torch.compare, abcsmc_tpu_torch.crc32, "
+        "abcsmc_tpu_torch.models, abcsmc_tpu_torch.ops.regression\n"
         "bad = sorted(m for m in set(sys.modules) - before if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'abcsmc_tpu.')) or m == 'abcsmc_tpu')\n"
         "assert not bad, bad\n"
@@ -378,7 +413,7 @@ def test_import_leaves_jax_out():
 COPIED = ["errors.py", "config.py", "models/metrics.py",
           "storage/__init__.py", "storage/base.py", "storage/memstore.py",
           "storage/sqlite_store.py", "models/ref_shim.py", "native.py",
-          "vis.py", "crc32.py", "compare.py"]
+          "vis.py", "crc32.py", "compare.py", "ops/regression.py"]
 
 
 # the only differences allowed: the package name in import paths, and two

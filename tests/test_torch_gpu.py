@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from abcsmc_tpu_torch import AbcSmc
-from abcsmc_tpu_torch.config import parse_config
+from abcsmc_tpu_torch.config import NoiseType, parse_config
 from abcsmc_tpu_torch.models.parameters import ParameterSet
 from abcsmc_tpu_torch.models.simulators import make_linear_gaussian_simulator
 from abcsmc_tpu_torch.models.transforms import ParameterTransform
@@ -381,7 +381,7 @@ def test_generation_step_mvn_box_cox_cuda_matches_cpu(cuda):
         f32 = dict(dtype=torch.float32, device=dev)
         d = type(draws)(draws.vdv_seed.to(dev), draws.pick.to(dev), None,
                         draws.next_seeds.to(dev), draws.noise_eps.to(dev),
-                        torch.Generator(device=dev).manual_seed(2))
+                        torch.tensor(2, device=dev))
         out[dev.type] = gen.step_precomputed(
             torch.as_tensor(params, **f32), torch.as_tensor(mets, **f32),
             keep, n, d, tuple(torch.as_tensor(x, **f32) for x in state))
@@ -566,6 +566,51 @@ def test_replayed_step_equals_eager_step(cuda):
     fused.run_scan(g(), n, keep, gens)
     assert fused.graph_captures == 1
     assert fused.graph_replays == 2 * (gens - 2) + 1
+
+
+@pytest.mark.parametrize("block", [64, 2])
+def test_replayed_mvn_step_equals_eager_step(cuda, block):
+    """MULTIVARIATE noise replays too: run_scan captures the step once (a
+    capture that read the host would fail) and replays it; every set's
+    rejection count, survivors (rows of the proposal before it), weights
+    and doubled variance equal the sequential loop's bit for bit. This problem needs 20-41 rounds a set: a block of
+    64 holds them all inside the graph, a block of 2 makes every set
+    finish its rounds eagerly after the replay, with the same bits."""
+    n, keep, gens = 8192, 410, 6
+    _, ps, tr, sim, obs, *_ = _scale_problem(n, keep)
+
+    def make():
+        return Generation(ps, tr, sim, obs, device=cuda,
+                          noise_type=NoiseType.MULTIVARIATE)
+
+    def g():
+        return torch.Generator(device=cuda).manual_seed(9)
+
+    seq = make()
+    kernels.mixture_logsumexp.launches = 0
+    last, states = seq.run(g(), [n] * gens, [keep] * gens)
+    assert kernels.mixture_logsumexp.launches == 2 * (gens - 1)
+    fused = make()
+    fused.rejection_block = block
+    kernels.mixture_logsumexp.launches = 0
+    flast, hist = fused.run_scan(g(), n, keep, gens, full_history=True)
+    assert kernels.mixture_logsumexp.launches == 2 * (gens - 1)
+    assert (fused.graph_captures, fused.graph_replays) == (1, gens - 2)
+    assert [i["route"] for i in fused.set_info] == (
+        ["eager"] * 2 + ["replay"] * (gens - 2))
+    # run_scan's last set proposes too (an unused proposal), run's does not
+    rounds = [i["mvn_rounds"] for i in fused.set_info]
+    assert rounds[:-1] == [i["mvn_rounds"] for i in seq.set_info][:-1]
+    assert min(rounds) > 2 and seq.set_info[-1]["mvn_rounds"] == 0
+    finished = [i["mvn_finished_eagerly"] for i in fused.set_info]
+    assert finished == [r > block for r in rounds]
+    assert fused.mvn_eager_finishes == sum(finished)
+    for t, (sp, w, dv) in enumerate(states):
+        assert torch.equal(hist[1][t], sp)
+        assert torch.equal(hist[3][t], w)
+        assert torch.equal(hist[4][t], dv)
+    assert torch.equal(flast.survivor_idx, last.survivor_idx)
+    assert torch.equal(flast.metrics, last.metrics)
 
 
 def test_fused_engine_run_equals_sequential_on_cuda(cuda):

@@ -21,12 +21,15 @@ distances, weights and doubled variance to rtol 1e-8, and the chosen
 lambdas equal the JAX host rule's (``stats.optimize_box_cox`` per shifted
 column) exactly."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from abcsmc_tpu.compare import ks_distance
 from abcsmc_tpu.config import (
     FilterType as JFilterType, NoiseType as JNoiseType, parse_config as j_parse,
 )
@@ -38,7 +41,7 @@ from abcsmc_tpu.ops import ranking
 from abcsmc_tpu.ops import stats as jstats
 from abcsmc_tpu.parallel import ShardedGeneration, particle_mesh
 from abcsmc_tpu_torch.config import FilterType, NoiseType, parse_config
-from abcsmc_tpu_torch.models.parameters import ParameterSet
+from abcsmc_tpu_torch.models.parameters import ParameterSet, RetryNormals
 from abcsmc_tpu_torch.models.transforms import ParameterTransform
 from abcsmc_tpu_torch.parallel.generation import Generation, StepDraws
 
@@ -109,7 +112,7 @@ def jax_draws(jgen, key, n_next) -> StepDraws:
         noise_u=torch.as_tensor(np.array(noise_u)),
         next_seeds=torch.as_tensor(np.array(seeds, np.int64)),
         noise_eps=torch.as_tensor(np.array(noise_eps)),
-        retry_generator=torch.Generator().manual_seed(99),
+        retry_seed=torch.tensor(99),
     )
 
 
@@ -253,6 +256,113 @@ def test_step_multivariate_collapsed_column_falls_back_like_jax():
     assert all(tuple(r) in surv for r in res.next_params.numpy())
 
 
+def _mvn_step(gen, jgen, key, first=False, n_next=300, data=None):
+    params, mets, obs, prev = data or _data(truth=(0.02, 0.97, 19.0))
+    return gen.step_precomputed(
+        torch.as_tensor(params), torch.as_tensor(mets), KEEP, n_next,
+        jax_draws(jgen, key, n_next),
+        None if first else tuple(torch.as_tensor(x) for x in prev))
+
+
+def test_mvn_rejection_block_changes_no_bit():
+    """The retry rounds' normals are a counter hash of (seed, round, row,
+    column): blocks of 1 or 2 rounds between host reads (each later block
+    run eagerly) and one block of max_retries rounds give the same rows bit
+    for bit and the same count."""
+    obs = _data(truth=(0.02, 0.97, 19.0))[2]
+    key = jax.random.PRNGKey(8)
+    out = []
+    for block in (1, 2, 1000):
+        jgen, gen = _pair(obs, np.float64, noise_type="MULTIVARIATE")
+        gen.rejection_block = block
+        res = _mvn_step(gen, jgen, key)
+        out.append((res, gen.mvn_eager_finishes))
+    *small, (whole, fin) = out
+    assert whole.mvn_rounds > 2 and fin == 0
+    assert not whole.mvn_finished_eagerly
+    for res, fin in small:
+        assert res.mvn_rounds == whole.mvn_rounds
+        assert fin == 1 and res.mvn_finished_eagerly
+        np.testing.assert_array_equal(res.next_params.numpy(),
+                                      whole.next_params.numpy())
+
+
+def test_mvn_count_is_the_first_all_accepted_round():
+    """The count is the JAX loop's counter: the first round after which
+    every row holds an accepted proposal; each row keeps its first accepted
+    one (rebuilt here round by round from the same normals)."""
+    ps = _pair(_data()[2], np.float64)[1].par_set
+    rng = np.random.default_rng(3)
+    mu = torch.as_tensor(np.stack([rng.uniform(0.02, 0.1, 200),
+                                   rng.uniform(0.9, 0.98, 200),
+                                   rng.integers(1, 21, 200).astype(float)],
+                                  axis=1))
+    L = torch.as_tensor(np.diag([0.2, 0.2, 3.0]))
+    eps = torch.as_tensor(rng.normal(size=(200, 3)))
+    seed = torch.tensor(1234)
+    x, count = ps.noise_multivariate(mu, L, eps, 1000, seed)
+    stream = RetryNormals(seed, 200, 3, torch.float64, "cpu")
+    keys = stream.round_keys(1, 200)
+    want = torch.full_like(mu, math.nan)
+    done = torch.zeros(200, dtype=torch.bool)
+    r = 0
+    while not bool(done.all()):
+        e = eps if r == 0 else stream.normals(keys[r - 1])
+        prop = ps.recast(mu + e @ L.T)
+        ok = ps.valid_mask(prop).all(dim=1) & ~done
+        want[ok] = prop[ok]
+        done |= ok
+        r += 1
+    assert count == r > 3
+    assert torch.equal(x, want)
+    # a round's normals: standard normal, the same whichever block asks
+    z = stream.normals(keys[5])
+    assert torch.equal(z, stream.normals(stream.round_keys(6, 7)[0]))
+    assert ks_distance(z.numpy().ravel(),
+                       np.random.default_rng(0).normal(size=600)) < 0.1
+
+
+def test_mvn_deferred_count_equals_the_eager_step():
+    """What a replay does on the card, on the CPU: a step built as under
+    capture leaves its rejection loop on the device after one block; the
+    finish read after it gives the eager step's count and rows, and leaves
+    the loop as the step made it (the next replay runs it again)."""
+    obs = _data(truth=(0.02, 0.97, 19.0))[2]
+    key = jax.random.PRNGKey(8)
+    jgen, gen = _pair(obs, np.float64, noise_type="MULTIVARIATE")
+    eager = _mvn_step(gen, jgen, key)
+    gen._capturing = True
+    deferred = _mvn_step(gen, jgen, key)
+    gen._capturing = False
+    loop = deferred.mvn_loop
+    assert deferred.mvn_rounds == 0 and int(loop.count) == -1
+    block_rows = deferred.next_params.clone()
+    for _ in range(2):
+        got = block_rows.clone()
+        rounds, more = gen._finish_rejection(loop, got)
+        assert (rounds, more) == (eager.mvn_rounds, True)
+        np.testing.assert_array_equal(got.numpy(), eager.next_params.numpy())
+        assert loop.rounds == gen.rejection_block and int(loop.count) == -1
+
+
+def test_mvn_collapsed_column_reads_max_retries_after_one_block():
+    """A NaN factor accepts nothing: the count reads max_retries after the
+    first block (the later rounds are skipped) and every row is its
+    survivor, as JAX's 1,000-round loop leaves it."""
+    params, mets, obs, prev = _data()
+    params = params.copy()
+    params[:, 2] = 7.0
+    key = jax.random.PRNGKey(2)
+    jgen, gen = _pair(obs, np.float64, noise_type="MULTIVARIATE")
+    jres = jgen.step_precomputed(key, jnp.asarray(params), jnp.asarray(mets),
+                                 KEEP, 120, None)
+    res = _mvn_step(gen, jgen, key, first=True, n_next=120,
+                    data=(params, mets, obs, prev))
+    assert res.mvn_rounds == 1000 and not res.mvn_finished_eagerly
+    np.testing.assert_array_equal(res.next_params.numpy(),
+                                  np.asarray(jres.next_params))
+
+
 def _skewed_data(seed=4):
     """Positive, right-skewed metrics (exp of a normal) whose log is linear
     in the parameters, plus one column with a non-positive minimum."""
@@ -350,7 +460,7 @@ def test_generation_takes_the_config_keys_and_refuses_projection():
     assert gen.weight_precision == "highest"
     d = gen.draw_step(torch.Generator().manual_seed(0), 10)
     assert d.noise_u is None and d.noise_eps.shape == (10, NPAR)
-    assert d.retry_generator is not None
+    assert d.retry_seed.shape == () and d.retry_seed.dtype == torch.int64
     pseudo = [{"name": "g", "dist_type": "PSEUDO", "num_type": "INT",
                "par1": 0, "par2": 3}]
     raw = {"parameters": pseudo,
@@ -448,3 +558,58 @@ def test_hostile_dual_moment_fixtures_f32(fixture):
     assert set(res.survivor_idx.tolist()) == set(
         np.asarray(jres.survivor_idx).tolist())
     assert int(res.ncomp_used) == 0
+
+
+@pytest.mark.parametrize("cap", [{"max_pls_components": 2},
+                                 {"vdv_max_rows": 64},
+                                 {"vdv_permutations": 31}])
+def test_capped_step_matches_jax_step(cap):
+    """The three ShardedGeneration arguments that are no config key: the
+    component cap binds (2 of 5), the van der Voet test on the last 64
+    rows or with 31 sign rows; the same survivors and ncomp_used as the
+    JAX step with the same value."""
+    params, mets, obs, prev = _data()
+    jgen, gen = _pair(obs, np.float64, **cap)
+    key = jax.random.PRNGKey(5)
+    jres = jgen.step_precomputed(key, jnp.asarray(params), jnp.asarray(mets),
+                                 KEEP, 0, tuple(jnp.asarray(x) for x in prev))
+    res = gen.step_precomputed(torch.as_tensor(params), torch.as_tensor(mets),
+                               KEEP, 0, jax_draws(jgen, key, 0),
+                               tuple(torch.as_tensor(x) for x in prev))
+    _assert_rank_and_weights_equal(res, jres)
+    if "max_pls_components" in cap:
+        assert int(res.ncomp_used) == 2
+
+
+def test_overflowed_shifted_frame_is_not_chosen_f32():
+    """float32 data near 0 (|x| <= 3e18) with the observed value at 1.5e19:
+    the shifted sums overflow (ratio inf / inf), the raw ones do not. The
+    port takes the raw frame: finite distances within 1e-5 of the float64
+    run's, and its survivors. JAX keeps the overflowed frame; on the CPU
+    its distances are finite but far from float64's (the deviation the
+    port's ``_dual_moment_stats`` documents)."""
+    rng = np.random.default_rng(3)
+    n, keep = 64, 16
+    params = rng.uniform(1, 50, (n, 2))
+    mets = np.stack([rng.uniform(-3e18, 3e18, n), 100.0 * rng.normal(size=n)],
+                    axis=1)
+    obs = np.array([1.5e19, 0.0])
+    jgen, gen = _pair(obs, np.float32, params=DICE, filter_type="SIMPLE")
+    _, gen64 = _pair(obs, np.float64, params=DICE, filter_type="SIMPLE")
+    draws = StepDraws(torch.tensor(0), torch.zeros(0), torch.zeros(0, 2),
+                      torch.zeros(0, dtype=torch.int64))
+    got = gen.step_precomputed(torch.as_tensor(params, dtype=torch.float32),
+                               torch.as_tensor(mets, dtype=torch.float32),
+                               keep, 0, draws)
+    want = gen64.step_precomputed(torch.as_tensor(params),
+                                  torch.as_tensor(mets), keep, 0, draws)
+    assert np.isfinite(got.distances.numpy()).all()
+    np.testing.assert_allclose(got.distances.numpy(),
+                               want.distances.numpy(), rtol=1e-5)
+    assert set(got.survivor_idx.tolist()) == set(want.survivor_idx.tolist())
+    jres = jgen.step_precomputed(jax.random.PRNGKey(0),
+                                 jnp.asarray(params, jnp.float32),
+                                 jnp.asarray(mets, jnp.float32), keep, 0,
+                                 None)
+    assert not np.allclose(np.asarray(jres.distances),
+                           want.distances.numpy(), rtol=1e-3)
