@@ -1,6 +1,7 @@
 """abcsmc_tpu_torch — the PyTorch/CUDA port of :mod:`abcsmc_tpu`.
 
-ABC-SMC with PLS particle filtering for one NVIDIA GPU (Hopper, ``sm_90a``).
+ABC-SMC with PLS particle filtering on NVIDIA GPUs (Hopper, ``sm_90a``): one
+card, or a particle mesh over cards and processes.
 The module names mirror :mod:`abcsmc_tpu`, so each counterpart is easy to
 find; the JAX package stays the numerical reference the port is held
 against (``tests/test_torch_*.py``).
@@ -43,7 +44,7 @@ def resolve_device(device) -> _torch.device:
 
 
 # the counterparts of abcsmc_tpu's exports: Generation stands for
-# ShardedGeneration (one device); particle_mesh waits for multi-GPU
+# ShardedGeneration (one device without a mesh, or a particle mesh)
 from abcsmc_tpu_torch.config import ConfigError, SmcConfig, parse_config  # noqa: E402
 from abcsmc_tpu_torch.engine import AbcSmc  # noqa: E402
 from abcsmc_tpu_torch.models.metrics import Metric  # noqa: E402
@@ -68,7 +69,7 @@ from abcsmc_tpu_torch.models.simulators import (  # noqa: E402
     make_linear_gaussian_simulator,
     make_sir_simulator,
 )
-from abcsmc_tpu_torch.parallel import Generation  # noqa: E402
+from abcsmc_tpu_torch.parallel import Generation, particle_mesh  # noqa: E402
 from abcsmc_tpu_torch.storage import MemoryStorage, SQLiteStorage  # noqa: E402
 
 __version__ = "0.1.0"
@@ -97,6 +98,7 @@ __all__ = [
     "make_sir_simulator",
     "make_linear_gaussian_simulator",
     "Generation",
+    "particle_mesh",
     "MemoryStorage",
     "SQLiteStorage",
     "resolve_device",

@@ -18,11 +18,17 @@ Two ways to run, as in the JAX package:
   host odometer builds the sweep, and the whole sweep is simulated in one
   call on the device.
 
-One process: the JAX package's multi-process gating (``_store_writer``,
-``_mesh_sync``, ``_writer_guard``, ``_broadcast_flag``) collapses to the
-single-process case. Every config key and every ``AbcSmc`` method of the
-JAX package runs here on one GPU; ``topk_two_stage`` and
-``weight_precision`` are accepted and change nothing on one device.
+``run_device(mesh=...)`` shards every step over a particle mesh
+(:mod:`abcsmc_tpu_torch.parallel.mesh`): one process with one or more
+shards, or several processes in a ``torch.distributed`` group against one
+store. Every process computes the same replicated state; the JAX package's
+gating decides who writes: process 0 mirrors a shared store
+(``_store_writer``), barriers publish its writes (``_mesh_sync``), an error
+on one process raises on all (``_writer_guard``), the brain's early stop
+reaches every loop (``_broadcast_flag``), and the host engine refuses a
+shared store on several processes. The brain runs on the mesh's lead
+device. ``weight_precision`` is accepted and changes nothing (the kernel
+has one dot scheme).
 """
 
 from __future__ import annotations
@@ -47,7 +53,10 @@ from abcsmc_tpu_torch.models.simulators import (
 )
 from abcsmc_tpu_torch.models.transforms import ParameterTransform
 from abcsmc_tpu_torch.ops import ranking, resample, stats, weights
-from abcsmc_tpu_torch.parallel.generation import _SEED_HIGH, Generation
+from abcsmc_tpu_torch.parallel.generation import (
+    _SEED_HIGH, Generation, sharded_simulate,
+)
+from abcsmc_tpu_torch.parallel.mesh import fetch_rows_global, single_mesh
 from abcsmc_tpu_torch.storage import MemoryStorage, SQLiteStorage, Storage
 
 
@@ -68,7 +77,8 @@ def _host(x) -> np.ndarray:
 
 
 class AbcSmc:
-    """One ABC-SMC-PLS analysis on one device.
+    """One ABC-SMC-PLS analysis on one device (``run_device`` also over a
+    particle mesh).
 
     Parameters
     ----------
@@ -141,6 +151,10 @@ class AbcSmc:
         #: one "run_device_phases" entry per run from the device path, one
         #: "simulate_device" entry per set from the projection route
         self.timings: list[dict] = []
+        #: the particle mesh of the running device-path call (one shard on
+        #: ``self.device`` without a mesh), None elsewhere: the gating below
+        #: and the projection's simulate read it
+        self._mesh = None
         self._stopped_early = False
         self._particle_parameters: list[np.ndarray] = []
         self._particle_metrics: list[np.ndarray] = []
@@ -451,7 +465,15 @@ class AbcSmc:
         """Claim-and-run workers (src/AbcSmc.cpp:967-1039): claim up to n
         queued or stuck-running jobs (-1 = all), run the simulator (a device
         simulator on the engine's device and dtype), write the metrics back
-        guarded by job status."""
+        guarded by job status.
+
+        Inside ``run_device``'s projection sweep the batch is simulated
+        over the run's particle mesh
+        (:func:`~abcsmc_tpu_torch.parallel.generation.sharded_simulate`,
+        JAX engine :1387-1446): on several processes against a shared
+        store process 0 claims, the others read the same rows after a
+        barrier, both in serial order, and only the store writer writes
+        back."""
         assert n == 1 or (serial_req == -1 and posterior_req == -1)
         assert serial_req == -1 or posterior_req == -1
         if self.simulator is None:
@@ -459,17 +481,27 @@ class AbcSmc:
                 "simulator not set (no executable/shared/builtin binding)",
                 code=-211,
             )
+        mesh = self._mesh
         t0 = time.perf_counter()
-        claimed = self.storage.claim_jobs(n, serial_req, posterior_req)
+        claimed = self._claim_jobs(n, serial_req, posterior_req)
         t_claim = time.perf_counter() - t0
         if claimed.serials.size == 0:
             return True
         start = time.time()
         t0 = time.perf_counter()
-        mets = self.simulator.run_batch(
-            claimed.params, claimed.seeds, claimed.serials,
-            device=self.device, dtype=self.dtype,
-        )
+        if mesh is None:
+            mets = self.simulator.run_batch(
+                claimed.params, claimed.seeds, claimed.serials,
+                device=self.device, dtype=self.dtype,
+            )
+        else:
+            mets = sharded_simulate(
+                self.simulator, mesh,
+                torch.as_tensor(np.asarray(claimed.params, np.float64)).to(
+                    self.dtype),
+                torch.as_tensor(claimed.seeds.astype(np.int64)),
+                len(claimed.serials),
+            )
         t_sim = time.perf_counter() - t0
         if mets.shape[1] != self.nmet:
             raise SimulatorError(
@@ -489,16 +521,43 @@ class AbcSmc:
             mets[bad] = np.finfo(np.float64).tiny
         nrun = len(claimed.serials)
         t0 = time.perf_counter()
-        self.storage.write_results(
-            claimed.serials, mets, np.full(nrun, int(start)),
-            np.full(nrun, t_sim / max(nrun, 1)),
-        )
+        with self._writer_guard("the simulate writeback"):
+            if self._store_writer():
+                self.storage.write_results(
+                    claimed.serials, mets, np.full(nrun, int(start)),
+                    np.full(nrun, t_sim / max(nrun, 1)),
+                )
         self.timings.append({
             "op": "simulate", "n": nrun, "claim_s": round(t_claim, 4),
             "sim_s": round(t_sim, 4),
             "writeback_s": round(time.perf_counter() - t0, 4),
         })
         return True
+
+    def _claim_jobs(self, n: int, serial_req: int, posterior_req: int):
+        """The jobs :meth:`simulate_next_particles` runs. On a
+        multi-process mesh against a shared store every process must
+        simulate the same batch: process 0 claims, and the others read the
+        runnable rows once its claim is done, both in serial order."""
+        if not (self._multi() and getattr(self.storage, "shared", True)):
+            with self._writer_guard("the job claim"):
+                return self.storage.claim_jobs(n, serial_req, posterior_req)
+        claimed = None
+        with self._writer_guard("the job claim"):
+            if self._proc0():
+                claimed = self.storage.claim_jobs(n, serial_req,
+                                                  posterior_req)
+                order = np.argsort(claimed.serials)
+                claimed = type(claimed)(
+                    serials=claimed.serials[order],
+                    seeds=claimed.seeds[order],
+                    params=claimed.params[order],
+                )
+        self._mesh_sync()   # the writer's claim happens-before the read
+        with self._writer_guard("the runnable-row read"):
+            if not self._proc0():
+                claimed = self.storage.read_runnable()
+        return claimed
 
     def simulate_particle_by_serial(self, serial_req: int) -> bool:
         return self.simulate_next_particles(1, serial_req, -1)
@@ -543,6 +602,91 @@ class AbcSmc:
         self.process_database(seed + self.config.num_smc_sets, verbose)
         return self
 
+    # ------------------------------------------------ multi-process gating
+    def _proc0(self) -> bool:
+        """True on process 0 of the running device path's mesh (every
+        one-process mesh, and the host engine): the single writer of the
+        device path's replicated store mutations on a multi-process mesh
+        (JAX engine :154-165). Every process computes the same
+        generations, so without this gate each would race to mirror the
+        same rows into a shared store."""
+        return self._mesh is None or self._mesh.process_index == 0
+
+    def _store_writer(self) -> bool:
+        """True when this process performs the replicated store writes:
+        process 0 of a shared store, every process of a private one (each
+        then holds its own identical copy)."""
+        return self._proc0() or not getattr(self.storage, "shared", True)
+
+    def _require_single_process_for_host_fallback(self, why: str) -> None:
+        """The host engine (:meth:`run`) has no process gating: on several
+        processes against a shared store each would drive the brain at once.
+        Refuse instead; process-private stores run independent identical
+        host fits."""
+        import torch.distributed as dist
+
+        if (dist.is_initialized() and dist.get_world_size() > 1
+                and getattr(self.storage, "shared", True)):
+            raise AbcError(
+                f"run_device: {why}, which requires the host engine - but "
+                "the host engine cannot run on a multi-process mesh against "
+                "a shared store (no single-writer gating). Run it as one "
+                "process, or give each process a private store.",
+            )
+
+    def _multi(self) -> bool:
+        return self._mesh is not None and self._mesh.multi_process
+
+    def _mesh_sync(self):
+        """Barrier across the processes of the run's mesh: a store write by
+        the writer before it is visible to every process's read after it.
+        No-op with one process."""
+        if self._multi():
+            self._mesh.barrier()
+
+    def _broadcast_flag(self, value: bool) -> bool:
+        """Process 0's boolean on every process (an early stop decided by
+        the writer's brain must end every process's loop)."""
+        if self._multi():
+            return self._mesh.broadcast_flag(value)
+        return bool(value)
+
+    @contextlib.contextmanager
+    def _writer_guard(self, what: str):
+        """A scope of fallible work that one process does and the others do
+        not (the store writer's writes): a local error is held, the
+        processes agree on whether any failed, then the failing process
+        re-raises its own error and the peers raise a coded
+        :class:`AbcError` naming the phase, instead of waiting in the next
+        collective until its timeout. No collective may run inside the
+        scope. One process: the error is re-raised as it is."""
+        err: Exception | None = None
+        try:
+            yield
+        except Exception as e:  # noqa: BLE001 - re-raised after agreeing
+            err = e
+        if self._multi():
+            failed = self._mesh.any_process(err is not None)
+            if err is not None:
+                raise err
+            if failed:
+                raise AbcError(
+                    f"a peer process failed during {what}; aborting this "
+                    "process instead of hanging in the next collective "
+                    "(see the failing process's traceback)",
+                )
+        elif err is not None:
+            raise err
+
+    def _fetch_global(self, x, axis: int = 0) -> np.ndarray:
+        """A device leaf as a host array: a shard list through
+        :func:`~abcsmc_tpu_torch.parallel.mesh.fetch_rows_global` (every
+        process gets every row, a large buffer window by window), a
+        replicated tensor as it is."""
+        if isinstance(x, list):
+            return fetch_rows_global(x, self._mesh, axis=axis)
+        return x.detach().cpu().numpy()
+
     # --------------------------------------------------------- device path
     def _resume_point(self, seed: int, verbose: bool):
         """Rebuild the state of the sets the store already holds
@@ -567,15 +711,29 @@ class AbcSmc:
             n_complete += 1
         if len(gens) - n_complete > 1:
             # not a state this engine produces: the host path reports it
+            self._require_single_process_for_host_fallback(
+                "the store holds more than one incomplete set")
             return "host", None
         if n_complete == len(gens):
             # at a set boundary: the brain ingests, reports, honours the
-            # early stop and enqueues the next set (or finds the run done)
-            self.process_database(seed, verbose)
-            if self._stopped_early:
-                return "done", None
-            gens = self.storage.read_generations()
-            if gens[-1].complete:
+            # early stop and enqueues the next set (or finds the run done).
+            # Only the store writer runs it; the others wait for its
+            # enqueue, take its stop decision and rebuild the same state
+            # from the store it has just ranked
+            with self._writer_guard("the boundary-resume brain pass"):
+                if self._store_writer():
+                    self.process_database(seed, verbose)
+            self._mesh_sync()
+            stopped = self._broadcast_flag(self._stopped_early)
+            with self._writer_guard("the boundary-resume state rebuild"):
+                gens = self.storage.read_generations()
+                if not self._store_writer():
+                    done = gens if gens[-1].complete else gens[:-1]
+                    for t, g in enumerate(done):
+                        self._particle_parameters.append(g.params)
+                        self._particle_metrics.append(g.metrics)
+                        self._ingest_complete_set(g, t)
+            if stopped or gens[-1].complete:
                 return "done", None
         else:
             for t, g in enumerate(gens[:n_complete]):
@@ -585,7 +743,7 @@ class AbcSmc:
         return "device", gens[-1]
 
     def run_device(self, seed: int = 0, verbose: bool = False,
-                   mirror_store: bool = True):
+                   mirror_store: bool = True, mesh=None):
         """SMC on ``self.device``: one generation step per set
         (:class:`abcsmc_tpu_torch.parallel.generation.Generation`), every
         draw from one ``torch.Generator`` seeded with ``seed``. The sets stay
@@ -626,14 +784,41 @@ class AbcSmc:
         (``propose_split``, or its auto rule at sizes near the card's
         memory), is sequential: such a set is ranked, fetched and freed
         before its proposal is made (rank -> fetch -> free -> propose).
-        ``row_block`` chunks the row passes on every route."""
+        ``row_block`` chunks the row passes on every route.
+
+        ``mesh`` (:func:`~abcsmc_tpu_torch.parallel.mesh.particle_mesh`)
+        shards every step over its shards; the brain then runs on the
+        mesh's lead device. A mesh of several shards draws each shard's
+        rows from its own generator (the run's generator, on the CPU, draws
+        the shared seeds), so its rows differ from a one-shard run's; with
+        one shard they are the same. On a mesh whose shards all sit on one
+        CUDA device the fused route replays CUDA graphs as above; across
+        devices or processes its sets run eagerly. Every process of a
+        multi-process mesh calls ``run_device`` with the same arguments;
+        process 0 writes a shared store and prints the reports."""
+        if mesh is not None:
+            self.device = mesh.lead
         if not isinstance(self.simulator, DeviceSimulator):
+            self._require_single_process_for_host_fallback(
+                "the configuration is not device-runnable")
             if verbose:
                 sys.stderr.write(
                     "run_device: configuration not device-runnable, "
                     "falling back to host engine\n"
                 )
             return self.run(seed, verbose)
+        # the gating runs on the one-shard mesh too, where it is a no-op
+        self._mesh = single_mesh(self.device) if mesh is None else mesh
+        try:
+            return self._run_device_on_mesh(seed, verbose, mirror_store,
+                                            mesh)
+        finally:
+            self._mesh = None
+
+    def _run_device_on_mesh(self, seed, verbose, mirror_store, mesh):
+        """:meth:`run_device` of a device-runnable configuration, its
+        gating on ``self._mesh``; the step takes ``mesh`` (None: plain
+        tensors on ``self.device``)."""
         cfg = self.config
         if (cfg.projection_mode or self.par_set.pseudo_idx
                 or self.par_set.posterior_idx):
@@ -643,11 +828,12 @@ class AbcSmc:
         if kind == "done":
             return self
         if kind == "host":
+            self._mesh = None
             return self.run(seed, verbose)
         t_first = 0 if pending is None else pending.set_num
         gen = Generation(
             self.par_set, self.transform, self.simulator, self.obs,
-            device=self.device, dtype=self.dtype,
+            device=self.device, mesh=mesh, dtype=self.dtype,
             filter_type=cfg.filter,
             noise_type=cfg.noise,
             training_fraction=cfg.pls_training_fraction,
@@ -660,7 +846,10 @@ class AbcSmc:
             propose_split=cfg.propose_split,
             topk_two_stage=cfg.topk_two_stage,
         )
-        generator = torch.Generator(device=self.device)
+        # a mesh of several shards draws only host seeds from the run's
+        # generator (each shard's rows come from its own): no device sync
+        generator = torch.Generator(
+            device=self.device if gen.mesh.size == 1 else "cpu")
         generator.manual_seed(int(seed) & 0xFFFFFFFFFFFFFFFF)
 
         # ---- the route ----
@@ -720,11 +909,14 @@ class AbcSmc:
         else:
             fetched = [
                 tuple(x if isinstance(x, np.ndarray)
-                      else x.detach().cpu().numpy() for x in tup)
+                      else self._fetch_global(x) for x in tup)
                 for tup in fetched
             ]
-        self._mirror_fetched_sets(fetched, t_first, pending_serials,
-                                  mirror_store)
+        # the mirror is collective-free: a store error on the writer must
+        # not leave its peers waiting in the barrier below
+        with self._writer_guard("the store mirror"):
+            self._mirror_fetched_sets(fetched, t_first, pending_serials,
+                                      mirror_store)
         # the mirror appended one "device_generation" entry per set, in order
         for entry, inf in zip(self.timings[-len(fetched):], info):
             ev, sim = inf["events"], inf["sim_events"]
@@ -750,8 +942,12 @@ class AbcSmc:
             "graph_replays": gen.graph_replays,
             "capture_s": gen.capture_seconds,
             "mvn_eager_finishes": gen.mvn_eager_finishes,
+            "shards": gen.mesh.size,
         })
-        reports.report_convergence_data(self, t_first + len(fetched) - 1)
+        if self._proc0():
+            reports.report_convergence_data(self, t_first + len(fetched) - 1)
+        # every process may read the store once run_device returns
+        self._mesh_sync()
         return self
 
     def _run_sequential(self, gen, generator, pending, t_first, sizes,
@@ -768,20 +964,27 @@ class AbcSmc:
         if pending is None:
             params, seeds = gen.init_population(generator, sizes[0])
         else:
-            params = self._tensor(pending.params)
-            seeds = torch.as_tensor(
-                pending.seeds.astype(np.int64)).to(self.device)
+            # the pending set padded and cut into the step's shards; its
+            # not-yet-done rows simulated over the mesh
+            n_t = sizes[t_first]
+            host_pars = np.asarray(pending.params, np.float64)
+            host_seeds = pending.seeds.astype(np.int64)
+            params = gen.shard_rows(
+                torch.as_tensor(host_pars).to(self.dtype), n_t)
+            seeds = gen.shard_rows(torch.as_tensor(host_seeds), n_t)
             pending_serials = pending.serials
             if np.any(pending.statuses == "D"):
                 todo = np.nonzero(pending.statuses != "D")[0]
                 merged = np.array(pending.metrics, np.float64)
                 if todo.size:
-                    idx = torch.as_tensor(todo, device=self.device)
-                    upars = self.transform.to_model_space(params).to(
-                        self.dtype)
-                    merged[todo] = _host(self.simulator.batch_fn(
-                        upars[idx], seeds[idx]))
-                pending_mets = self._tensor(merged)
+                    upars = self.transform.to_model_space(
+                        self._tensor(host_pars)).to(self.dtype)
+                    merged[todo] = sharded_simulate(
+                        self.simulator, gen.mesh,
+                        upars[torch.as_tensor(todo, device=self.device)],
+                        torch.as_tensor(host_seeds[todo]), todo.size)
+                pending_mets = gen.shard_rows(
+                    torch.as_tensor(merged).to(self.dtype), n_t)
         state = None
         if t_first > 0:
             surv = self._predictive_prior[t_first - 1]
@@ -829,7 +1032,7 @@ class AbcSmc:
                 # the set's seven buffers at once, then its O(N) device
                 # buffers die before the [N2, P] proposal is made
                 tuples.append(tuple(
-                    x.detach().cpu().numpy() for x in (
+                    self._fetch_global(x) for x in (
                         params, seeds, res.metrics, res.survivor_idx,
                         res.weights, res.doubled_variance, res.ncomp_used)))
                 del params, seeds, res
@@ -880,9 +1083,13 @@ class AbcSmc:
             s0 += blen
             tup = (h[6], h[7], h[8], h[0], h[3], h[4], h[5])
             if e[0] == "set":
-                fetched.append(tuple(x.detach().cpu().numpy() for x in tup))
+                fetched.append(tuple(self._fetch_global(x) for x in tup))
                 continue
-            host = tuple(x[:blen].detach().cpu().numpy() for x in tup)
+            # stacked shard leaves are [L, local_n, ...]: rows on axis 1
+            host = tuple(
+                self._fetch_global([y[:blen] for y in x], axis=1)
+                if isinstance(x, list) else self._fetch_global(x[:blen])
+                for x in tup)
             fetched.extend(tuple(leaf[g] for leaf in host)
                            for g in range(blen))
         return fetched
@@ -896,8 +1103,11 @@ class AbcSmc:
         back guarded (rows already 'D' keep their metrics), then their
         ranks. A negative ``ncomp_used`` (the step's U0 self-check) raises
         before any store write for that set. ``mirror_store=False`` writes
-        nothing to the store and does the rest."""
+        nothing to the store and does the rest. On a multi-process mesh
+        only the store writer writes and process 0 reports; every process
+        fills its in-memory state. No collective runs in here."""
         cfg = self.config
+        mirror_store = mirror_store and self._store_writer()
         if mirror_store and not self.storage.exists():
             self.storage.create(
                 self.par_set.short_names(),
@@ -960,26 +1170,48 @@ class AbcSmc:
                 "op": "device_generation", "set": t,
                 "ncomp_used": ncomp_val,
             })
-            reports.filtering_report(self, t, pars_np[surv], mets_np[surv])
+            if self._proc0():
+                reports.filtering_report(self, t, pars_np[surv],
+                                         mets_np[surv])
 
     # ---------------------------------------------------------- projection
     def _run_device_projection(self, seed: int, verbose: bool):
         """Projection sweeps (PSEUDO/POSTERIOR grids, src/AbcSmc.cpp:54-137,
         341-396) on the device path: the brain builds the population with
         the host odometer exactly as ``--process`` would (ParRNG.h:17-36
-        order), then each set is simulated in one call on the device
-        instead of claim-sized host batches: claim all, one ``batch_fn``
-        call, DBL_MIN bandaid, guarded writeback. The set's timing entry
-        is filed under the op "simulate_device"."""
-        for t in range(self.config.num_smc_sets):
-            self.process_database(seed + t, verbose)
-            if self._stopped_early:
+        order), then each set is simulated in one call over the run's mesh
+        instead of claim-sized host batches: claim all, one
+        ``sharded_simulate`` call, DBL_MIN bandaid, guarded writeback. The
+        set's timing entry is filed under the op "simulate_device".
+
+        On several processes the store writer runs the brain, a barrier
+        publishes each enqueue, every process simulates the same
+        serial-ordered batch (the writer claims it, the others read it),
+        the writer writes back, and the others ingest the finished store
+        at the end so that the posterior surfaces agree everywhere."""
+        cfg = self.config
+        for t in range(cfg.num_smc_sets):
+            with self._writer_guard("the projection brain pass"):
+                if self._store_writer():
+                    self.process_database(seed + t, verbose)
+            stop = self._broadcast_flag(self._stopped_early)
+            self._mesh_sync()
+            if stop:
+                if not self._store_writer():
+                    self.process_database(seed + t, verbose)
                 return self
             filed = len(self.timings)
             self.simulate_next_particles(n=-1)
             for entry in self.timings[filed:]:
                 entry["op"] = "simulate_device"
-        self.process_database(seed + self.config.num_smc_sets, verbose)
+            self._mesh_sync()
+        with self._writer_guard("the final projection brain pass"):
+            if self._store_writer():
+                self.process_database(seed + cfg.num_smc_sets, verbose)
+        self._mesh_sync()
+        if not self._store_writer():
+            # read-only final ingest: every write is gated off
+            self.process_database(seed + cfg.num_smc_sets, verbose)
         return self
 
     # ------------------------------------------------------------ results

@@ -488,18 +488,20 @@ class ParameterSet:
 
     def multivariate_rejection(self, mu, chol_lower, eps,
                                max_retries: int = 1000, retry_seed=None,
-                               block: int = REJECTION_BLOCK):
+                               block: int = REJECTION_BLOCK, row0: int = 0):
         """The first block of :meth:`noise_multivariate`'s rounds, with no
         host read: a :class:`RejectionLoop` on the device. A factor that
         holds a NaN (a collapsed column, :func:`setup_mvn_sampler`) accepts
-        no proposal, so its count reads ``max_retries`` at once."""
+        no proposal, so its count reads ``max_retries`` at once. ``row0``
+        is the global index of ``mu``'s first row (a mesh shard's offset):
+        the retry rounds' normals are hashed from global rows."""
         self._require_all_priors("noise")
         L = torch.as_tensor(chol_lower).to(mu)
         return RejectionLoop(
             lambda e: self.recast(mu + e @ L.T),
             lambda x: self.recast_valid_mask(x).all(dim=1, keepdim=True),
             eps.to(mu.dtype), max_retries, retry_seed, mu, block,
-            hopeless=torch.isnan(L).any(),
+            hopeless=torch.isnan(L).any(), row0=row0,
         )
 
     def perturb_multivariate(self, generator: torch.Generator, mu,
@@ -528,12 +530,14 @@ class RetryNormals:
     once more per cell, two words a cell, into the simulators' Box-Muller
     transform in float64. ``seed`` is a uint32 value (an int or a 0-d
     integer tensor); the normals are on ``device``. The integer hash gives
-    the same bits on every device."""
+    the same bits on every device. The rows are the global rows ``row0 ..
+    row0 + n - 1``, so the shards of a mesh draw what one device would."""
 
-    def __init__(self, seed, n: int, ncols: int, dtype, device):
+    def __init__(self, seed, n: int, ncols: int, dtype, device,
+                 row0: int = 0):
         self.key = _seed_base(torch.as_tensor(seed, device=device),
                               _RETRY_SALT)
-        self.rows = _fmix32(torch.arange(n, dtype=torch.int64,
+        self.rows = _fmix32(torch.arange(row0, row0 + n, dtype=torch.int64,
                                          device=self.key.device) ^ self.key)
         self.cols = torch.arange(2 * ncols, dtype=torch.int64,
                                  device=self.key.device)
@@ -571,14 +575,15 @@ class RejectionLoop:
     values and count."""
 
     def __init__(self, propose, accept, eps, max_retries: int, seed,
-                 fallback, block: int = REJECTION_BLOCK, hopeless=None):
+                 fallback, block: int = REJECTION_BLOCK, hopeless=None,
+                 row0: int = 0):
         self.propose, self.accept = propose, accept
         self.max_retries = max(int(max_retries), 1)
         self.fallback = fallback
         self.block, self.hopeless = max(int(block), 1), hopeless
         self.stream = (None if seed is None or self.max_retries == 1 else
                        RetryNormals(seed, eps.shape[0], eps.shape[1],
-                                    eps.dtype, eps.device))
+                                    eps.dtype, eps.device, row0))
         self.vals = propose(eps)
         self.accepted = accept(self.vals)
         self.first = torch.zeros(self.accepted.shape, dtype=torch.int64,

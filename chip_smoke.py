@@ -11,7 +11,8 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
              x 2 (the large main paths' shapes, all timed), at every shape
              the shipped examples of phase 7 give it (survivors of set t x
              survivors of set t - 1 x parameters, read from their configs:
-             128-410 rows, p = 2-4, none a multiple of a tile), 4,096^2 x
+             128-410 rows, p = 2-4, none a multiple of a tile), at every
+             per-shard shape of phase 13's mesh fits, 4,096^2 x
              80, 2,048^2 x 1 and a ragged
              37 x 1,000 x 1, in the static, online and auto modes; a hostile
              20,000^2 x 16 case (coordinates up to 6 kernel sd) against the
@@ -99,6 +100,26 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
              inside the prior bounds, posterior_predictive(1000) on the
              card.
 
+13. mesh    - the particle mesh on the one card: the north-star step
+             (1,000,000 x 6 x 13, keep 50,000, float32, data made on the
+             card) on one shard and on 4 shards of cuda:0 (same survivors
+             and ncomp_used > 1, weights and doubled variance within 1e-3
+             and 1e-4 of the one-shard step, the gaps printed), with the
+             two-stage top-K (bit-equal to the single stage) and through a
+             one-rank NCCL group (bit-equal to the one-shard step); every
+             per-shard kernel call (12,500 x 50,000 x 6) against plain and
+             beside its bound; step ms; dengue_surrogate as shipped on 3
+             shards (102,400 rows pad to 102,402), 3 sets, SQLite, beating
+             the prior; sir and dice (systematic resampling) as shipped on
+             2 shards with their MULTIVARIATE rounds per set; each of these
+             fits' per-shard kernel shapes (ceil(keep_t / shards) x
+             keep_{t-1} x p) held in phase 2 before it runs; a mesh over
+             several cards where the machine has them, its per-shard
+             kernel against plain (one line says why it did not run
+             otherwise); the pick's cdf scan repeated 30 times at 50,000,
+             2^22 and 2^26 entries (no repeat may differ) beside
+             torch.cumsum's.
+
 ``python3 chip_smoke.py --only fused,surfaces`` runs the build, the named
 phases (dengue too where surfaces is named) and the closing lines alone.
 
@@ -132,6 +153,9 @@ SMOKE_DIR = REPO / "build" / "smoke"  # the example phases' stores
 SIR_1M = (1_048_576, 52_429)          # particles, survivors (5 %) of sir_1m
 SWEEP_SIDE = 320                      # the PSEUDO sweep is SWEEP_SIDE^2 rows
 EXTRA_SHAPES = ((4096, 4096, 80), (2048, 2048, 1), (37, 1000, 1))
+# the mesh phase's fits: example -> (shards, sets; None = as shipped)
+MESH_RUNS = {"dengue_surrogate": (3, 3), "sir": (2, None), "dice": (2, None)}
+HELD = set()        # every (n, m, p) the kernel phase held against plain
 # Peak rates of one H100 SXM at its 700 W limit: the special-function unit
 # issues 16 ex2 per SM per clock (CUDA C++ Programming Guide, arithmetic
 # instruction throughput, compute capability 9.0), TF32 tensor cores 495
@@ -231,6 +255,22 @@ def example_kernel_shapes():
     return sorted(shapes)
 
 
+def mesh_kernel_shapes(name):
+    """Every per-shard (n, m, p) a ``MESH_RUNS`` fit gives the kernel, read
+    from its config: set t's ``ceil(keep_t / shards)`` edge-padded
+    survivors against the ``keep_{t-1}`` survivors of set t - 1."""
+    from abcsmc_tpu_torch.config import parse_config
+
+    k, sets = MESH_RUNS[name]
+    raw = json.loads((REPO / "examples" / f"{name}.json").read_text())
+    if sets is not None:
+        raw["smc_iterations"] = sets
+    cfg = parse_config(raw)
+    keeps = [cfg.pred_prior_size_at(t) for t in range(cfg.num_smc_sets)]
+    return {(-(-keeps[t] // k), keeps[t - 1], len(cfg.parameters))
+            for t in range(1, len(keeps))}
+
+
 def phase_kernel():
     import torch
 
@@ -265,7 +305,8 @@ def phase_kernel():
     # (the templates of the first port stopped at 64), tiny and ragged
     example_shapes = example_kernel_shapes()
     check(example_shapes, "no example shapes")
-    for n, m, p in (*example_shapes, *EXTRA_SHAPES):
+    mesh_shapes = sorted(set().union(*map(mesh_kernel_shapes, MESH_RUNS)))
+    for n, m, p in (*example_shapes, *mesh_shapes, *EXTRA_SHAPES):
         a, b, lw = kernel_inputs(n, m, p, seed=n + m + p)
         for mode in ("static", "online", "auto"):
             got = mixture_logsumexp(a, b, lw, mode=mode)
@@ -274,6 +315,7 @@ def phase_kernel():
             err = float((got - ref).abs().max())
             errs[f"{n}x{m}x{p}/{mode}"] = err
             check(err <= TOL, f"{mode} at {n}x{m}x{p}: max abs err {err}")
+        HELD.add((n, m, p))
 
     # hostile: coordinates up to 6 kernel sd, where the expansion
     # a.b - |a|^2/2 - |b|^2/2 cancels most; each query within ~1 sd of its
@@ -335,7 +377,7 @@ def phase_kernel():
     check(ierr <= TOL, f"-inf weights: max abs err {ierr}")
     errs["neg_inf_weights"] = ierr
     emit({"phase": "kernel", "max_abs_err": errs, "times": times,
-          "example_shapes": example_shapes})
+          "example_shapes": example_shapes, "mesh_shapes": mesh_shapes})
     return errs, times
 
 
@@ -1565,6 +1607,352 @@ def phase_surfaces(run):
           "wall_s": time.perf_counter() - t0})
 
 
+MESH_SHARDS = 4              # the virtual mesh of the north-star step
+MESH_KEEP = 50_000
+MESH_N = 1_000_000
+
+
+def mesh_generation(n, keep, mesh, **kw):
+    """The 6 x 13 north-star step on ``mesh`` (float32)."""
+    import numpy as np
+
+    from abcsmc_tpu_torch.config import parse_config
+    from abcsmc_tpu_torch.models.parameters import ParameterSet
+    from abcsmc_tpu_torch.models.transforms import ParameterTransform
+    from abcsmc_tpu_torch.parallel.generation import Generation
+
+    raw, _ = scale_config(n, keep)
+    cfg = parse_config(raw)
+    return Generation(
+        ParameterSet.from_specs(cfg.parameters),
+        ParameterTransform(cfg.parameters), None,
+        np.array([m.value for m in cfg.metrics]), mesh=mesh, **kw)
+
+
+MESH_STEP_REPS = 2            # timed calls after the checked one and a warm-up
+
+
+def mesh_steps(n, keep, data, state, shards_list, nccl_group=None):
+    """One later-set step of the same population on each mesh: the same
+    van der Voet seed everywhere (the one-shard step's first draw), each
+    mesh's own proposal draws; then its time over ``MESH_STEP_REPS``
+    calls. Returns {name: (gen, result, ms)}."""
+    import dataclasses
+
+    import torch
+
+    from abcsmc_tpu_torch.parallel.mesh import particle_mesh
+
+    out = {}
+    vdv = None
+    for name, devices, kw in shards_list:
+        group = nccl_group if name == "nccl_1rank" else None
+        mesh = particle_mesh(devices, group=group)
+        gen = mesh_generation(n, keep, mesh, **kw)
+        g = torch.Generator(device="cuda" if mesh.size == 1 else "cpu")
+        draws = gen.draw_step(g.manual_seed(5), n)
+        if vdv is None:
+            vdv = draws.vdv_seed
+        draws = dataclasses.replace(draws, vdv_seed=vdv)
+        params = gen.mesh.shard_rows(data[0], n)
+        mets = gen.mesh.shard_rows(data[1], n)
+
+        def step():
+            return gen.step_precomputed(params, mets, keep, n, draws, state,
+                                        n_valid=n)
+
+        res = step()
+        torch.cuda.synchronize()
+        out[name] = (gen, res, cuda_ms(step, MESH_STEP_REPS))
+    return out
+
+
+def mesh_kernel_vs_plain(res, state, shards):
+    """Each shard's weight-kernel call of the step, rebuilt on the same
+    inputs: its ``ceil(keep / shards)`` survivors (edge-padded) against
+    every previous center, kernel against plain. Returns (max abs err,
+    per-shard kernel ms, plain ms, the shape)."""
+    import torch
+
+    from abcsmc_tpu_torch.ops import weights
+    from abcsmc_tpu_torch.ops.kernels import (
+        mixture_logsumexp, mixture_logsumexp_reference,
+    )
+
+    surv = res.survivor_params
+    keep = surv.shape[0]
+    k_per = -(-keep // shards)
+    pad = torch.cat([surv, surv[-1:].expand(k_per * shards - keep, -1)])
+    prev_par, prev_w, prev_dv = state
+    err, ms, plain_ms = 0.0, [], []
+    saved = mixture_logsumexp.launches
+    for s in range(shards):
+        a, b, _ = weights._prep_scaled(pad[s * k_per:(s + 1) * k_per],
+                                       prev_par, prev_dv)
+        a, b = a.contiguous(), b.contiguous()
+        lw = torch.log(prev_w).contiguous()
+        got = mixture_logsumexp(a, b, lw)
+        ref = mixture_logsumexp_reference(a, b, lw)
+        torch.cuda.synchronize()
+        err = max(err, float((got - ref).abs().max()))
+        ms.append(cuda_ms(lambda: mixture_logsumexp(a, b, lw), 5))
+        plain_ms.append(cuda_ms(
+            lambda: mixture_logsumexp_reference(a, b, lw), 5))
+    # comparison launches are not main-path launches
+    mixture_logsumexp.launches = saved
+    return err, ms, plain_ms, (k_per, prev_par.shape[0], surv.shape[1])
+
+
+def mesh_north_star():
+    """The north-star step on one shard and on a 4-shard mesh of cuda:0,
+    the 4-shard step with the two-stage top-K, and the one-shard step
+    through a one-rank NCCL group. Returns (launches, errs, report)."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
+
+    n, keep, k = MESH_N, MESH_KEEP, MESH_SHARDS
+    data, state = scale_data(n, keep)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mixture_logsumexp.launches = 0
+        steps = mesh_steps(n, keep, data, state, [
+            ("one", ["cuda:0"], {}),
+            ("mesh4", ["cuda:0"] * k, {"topk_two_stage": False}),
+            ("mesh4_two_stage", ["cuda:0"] * k, {"topk_two_stage": True}),
+            ("nccl_1rank", ["cuda:0"], {}),
+        ], nccl_group=dist.group.WORLD)
+        launches = mixture_logsumexp.launches
+    finally:
+        dist.destroy_process_group()
+    one, four = steps["one"][1], steps["mesh4"][1]
+    two, nccl = steps["mesh4_two_stage"][1], steps["nccl_1rank"][1]
+    check(int(one.ncomp_used) > 1, f"mesh: one-shard ncomp {one.ncomp_used}")
+    check(int(four.ncomp_used) == int(one.ncomp_used),
+          f"mesh: ncomp {four.ncomp_used} on {k} shards vs {one.ncomp_used}")
+    a_set = set(one.survivor_idx.tolist())
+    b_set = set(four.survivor_idx.tolist())
+    same_set = a_set == b_set
+    check(same_set, f"mesh: {len(a_set ^ b_set)} survivors differ between "
+          f"1 and {k} shards")
+    # the weights of the same survivors, matched by global row
+    order = torch.argsort(one.survivor_idx)
+    order4 = torch.argsort(four.survivor_idx)
+    w_gap = float(((one.weights[order] - four.weights[order4]).abs()
+                   / one.weights.abs().max()).max())
+    dv_gap = float(((one.doubled_variance - four.doubled_variance).abs()
+                    / one.doubled_variance.abs()).max())
+    check(w_gap <= 1e-3, f"mesh: weight gap {w_gap} (of the largest)")
+    check(dv_gap <= 1e-4, f"mesh: doubled-variance gap {dv_gap}")
+    for f in ("survivor_idx", "survivor_params", "survivor_metrics",
+              "weights", "doubled_variance"):
+        check(torch.equal(getattr(two, f), getattr(four, f)),
+              f"mesh: two-stage top-K {f} differs from the single stage")
+    check(torch.equal(torch.cat(two.next_params),
+                      torch.cat(four.next_params)), "mesh: two-stage next")
+    for f in ("survivor_idx", "weights", "doubled_variance", "ncomp_used",
+              "next_params", "next_seeds"):
+        x, y = getattr(nccl, f), getattr(one, f)
+        x = torch.cat(x) if isinstance(x, list) else x
+        y = torch.cat(y) if isinstance(y, list) else y
+        check(torch.equal(x, y), f"mesh: the one-rank NCCL step's {f} is not "
+              "the one-shard step's")
+    # 2 launches per weight call, one call per shard, every step run
+    # 2 + MESH_STEP_REPS times (checked, warm-up, timed)
+    check(launches == 2 * (2 + MESH_STEP_REPS) * (1 + k + k + 1),
+          f"mesh: north-star launches {launches}")
+    err, ms, plain_ms, shape = mesh_kernel_vs_plain(four, state, k)
+    check(err <= TOL, f"mesh: per-shard kernel err {err}")
+    bound = kernel_bound_ms(*shape)
+    report = {
+        "n": n, "keep": keep, "shards": k,
+        "ncomp": [int(one.ncomp_used), int(four.ncomp_used)],
+        "same_survivor_set": same_set, "weight_gap": w_gap,
+        "doubled_variance_gap": dv_gap,
+        "step_ms": {name: v[2] for name, v in steps.items()},
+        "shard_kernel_shape": list(shape), "shard_kernel_ms": ms,
+        "shard_plain_ms": plain_ms, "shard_kernel_max_abs_err": err,
+        "shard_bound_ms": bound["bound_ms"],
+        "shard_bound_share": [bound["bound_ms"] / t for t in ms],
+        "launches": launches,
+    }
+    return launches, {"mesh_shard_12500x50000x6": err}, report
+
+
+def mesh_dengue():
+    """dengue_surrogate as shipped (102,400 x 16 x 100) on a 3-shard mesh
+    of cuda:0 (102,400 rows pad to 102,402), 3 sets, SQLite."""
+    import numpy as np
+
+    from abcsmc_tpu_torch import AbcSmc
+    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
+    from abcsmc_tpu_torch.parallel.mesh import particle_mesh
+
+    path = REPO / "examples" / "dengue_surrogate.json"
+    cfg = json.loads(path.read_text())
+    truth = np.array(json.loads(
+        re.search(r"truth=(\[[^\]]*\])", cfg["comment"]).group(1)))
+    n, keep = 102_400, 2_048
+    k, n_sets = MESH_RUNS["dengue_surrogate"]
+    cfg["smc_iterations"] = n_sets
+    shapes = mesh_kernel_shapes("dengue_surrogate")
+    check(shapes <= HELD, f"dengue mesh: kernel shapes {shapes - HELD} "
+          "were not held against plain")
+    db = cfg["database_filename"] = fresh_store("dengue_mesh3.sqlite")
+    mixture_logsumexp.launches = 0
+    t0 = time.perf_counter()
+    run = AbcSmc(cfg, device="cuda").run_device(
+        seed=0, mesh=particle_mesh(["cuda:0"] * k))
+    wall = time.perf_counter() - t0
+    launches = mixture_logsumexp.launches
+    run.storage.close()
+    rows = store_rows(db)
+    check(rows == [(t, n, n, keep) for t in range(n_sets)],
+          f"dengue mesh store rows {rows}")
+    check(launches == 2 * k * (n_sets - 1),
+          f"dengue mesh launches {launches}")
+    rep = fit_report(run, cfg, truth, ())
+    check(min(rep["ncomp"]) > 1, f"dengue mesh ncomp {rep['ncomp']}")
+    pars, _ = run.posterior()
+    rmse_post = float(np.sqrt(((pars.mean(0) - truth) ** 2).mean()))
+    rmse_prior = float(np.sqrt(((0.5 - truth) ** 2).mean()))
+    check(rmse_post < rmse_prior, f"dengue mesh posterior rmse {rmse_post} "
+          f">= prior {rmse_prior}")
+    return launches, {"store_rows": rows, "wall_s": wall,
+                      "kernel_shapes": sorted(shapes),
+                      "rmse_posterior": rmse_post, "rmse_prior": rmse_prior,
+                      "routes": rep["routes"], "set_ms": rep["set_ms"],
+                      "ncomp": rep["ncomp"], "launches": launches,
+                      "phases": rep["phases"]}
+
+
+def mesh_fits():
+    """sir (MULTIVARIATE) and dice (MULTIVARIATE, systematic resampling) as
+    shipped on a 2-shard mesh of cuda:0, SQLite stores."""
+    from abcsmc_tpu_torch import AbcSmc
+    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
+    from abcsmc_tpu_torch.parallel.mesh import particle_mesh
+
+    out, launches = {}, 0
+    for name, extra in (("sir", {}), ("dice", {"resample_method":
+                                               "systematic"})):
+        k = MESH_RUNS[name][0]
+        shapes = mesh_kernel_shapes(name)
+        check(shapes <= HELD, f"{name} mesh: kernel shapes {shapes - HELD} "
+              "were not held against plain")
+        cfg = json.loads((REPO / "examples" / f"{name}.json").read_text())
+        cfg.update(extra)
+        cfg["database_filename"] = fresh_store(f"{name}_mesh2.sqlite")
+        mixture_logsumexp.launches = 0
+        t0 = time.perf_counter()
+        run = AbcSmc(cfg, device="cuda").run_device(
+            seed=0, mesh=particle_mesh(["cuda:0"] * k))
+        wall = time.perf_counter() - t0
+        n_launch = mixture_logsumexp.launches
+        run.storage.close()
+        sets = cfg["smc_iterations"]
+        check(n_launch == 2 * k * (sets - 1),
+              f"{name} mesh launches {n_launch}")
+        rep = fit_report(run, cfg, *EXAMPLES[name][:2])
+        check(max(rep["mvn_rounds"][:-1]) >= 1, f"{name} mesh mvn rounds")
+        out[name] = {"wall_s": wall, "launches": n_launch,
+                     "kernel_shapes": sorted(shapes),
+                     "mvn_rounds": rep["mvn_rounds"], "ncomp": rep["ncomp"],
+                     "routes": rep["routes"], "set_ms": rep["set_ms"],
+                     "posterior_mean": rep["posterior_mean"]}
+        launches += n_launch
+    return launches, out
+
+
+def mesh_multi_device():
+    """A real mesh over every card of the machine, where there is more
+    than one: its step against the one-shard step."""
+    import torch
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"mesh: the multi-device mesh did not run: this machine has "
+              f"{count} CUDA device (a mesh over several cards needs two "
+              "or more)", flush=True)
+        return 0, None
+    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
+
+    n, keep = MESH_N, MESH_KEEP
+    data, state = scale_data(n, keep)
+    mixture_logsumexp.launches = 0
+    steps = mesh_steps(n, keep, data, state, [
+        ("one", ["cuda:0"], {}),
+        ("devices", [f"cuda:{i}" for i in range(count)], {})])
+    launches = mixture_logsumexp.launches
+    one, many = steps["one"][1], steps["devices"][1]
+    check(int(one.ncomp_used) == int(many.ncomp_used),
+          "multi-device ncomp")
+    check(set(one.survivor_idx.tolist()) == set(many.survivor_idx.tolist()),
+          "multi-device survivors")
+    err, ms, _, shape = mesh_kernel_vs_plain(many, state, count)
+    check(err <= TOL, f"multi-device per-shard kernel err {err}")
+    return launches, {"devices": count,
+                      "step_ms": {k: v[2] for k, v in steps.items()},
+                      "shard_kernel_shape": list(shape),
+                      "shard_kernel_max_abs_err": err, "shard_kernel_ms": ms}
+
+
+def pick_cdf_determinism(reps=30):
+    """The resample pick's cdf on the card: ``torch.cumsum`` of a 1-D
+    tensor (a look-back scan whose float order depends on timing) against
+    the step's ``_cumsum`` (a scan of 1,024-entry rows, then of their
+    totals): how many of ``reps`` repeats differ from the first, and ms a
+    call, at the north-star keep, 2^22 and 2^26 entries."""
+    import torch
+
+    from abcsmc_tpu_torch.parallel.generation import _cumsum
+
+    out = {}
+    for k in (MESH_KEEP, 1 << 22, 1 << 26):
+        w = torch.rand(k, generator=torch.Generator(device="cuda")
+                       .manual_seed(k), device="cuda")
+        row = {}
+        for name, fn in (("torch_cumsum", lambda: torch.cumsum(w, 0)),
+                         ("step_cumsum", lambda: _cumsum(w))):
+            first = fn()
+            row[name + "_runs_differing"] = sum(
+                not torch.equal(first, fn()) for _ in range(reps - 1))
+            row[name + "_ms"] = cuda_ms(fn, 10)
+        check(row["step_cumsum_runs_differing"] == 0,
+              f"the step's cdf scan differs between runs at {k}")
+        out[str(k)] = row
+    return out
+
+
+def phase_mesh():
+    """The particle mesh: the north-star step on 1 and 4 shards of cuda:0
+    (two-stage top-K, a one-rank NCCL group), dengue_surrogate on 3 shards,
+    sir and dice on 2, and a mesh over several cards where there are."""
+    t0 = time.perf_counter()
+    launches, errs, north = mesh_north_star()
+    more, dengue = mesh_dengue()
+    launches += more
+    more, fits = mesh_fits()
+    launches += more
+    more, multi = mesh_multi_device()
+    launches += more
+    if multi is not None:
+        errs["mesh_multi_device_shard"] = multi["shard_kernel_max_abs_err"]
+    emit({"phase": "mesh", "north_star": north, "dengue_mesh3": dengue,
+          "fits_mesh2": fits, "multi_device": multi,
+          "pick_cdf": pick_cdf_determinism(),
+          "wall_s": time.perf_counter() - t0})
+    return launches, errs
+
+
 def main() -> int:
     if not (REPO / "abcsmc_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -1614,7 +2002,7 @@ def main() -> int:
         if wanted(name):
             launches += phase()
     for name, phase in (("hbm_scale", phase_hbm_scale),
-                        ("fused", phase_fused)):
+                        ("fused", phase_fused), ("mesh", phase_mesh)):
         if wanted(name):
             more, more_errs = phase()
             launches += more

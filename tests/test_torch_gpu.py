@@ -664,3 +664,124 @@ def test_surfaces_on_cuda(cuda, tmp_path):
         b.run_device(seed=1, mirror_store=False)
     assert not b.storage.exists()
     np.testing.assert_array_equal(b.posterior()[0], a.posterior()[0])
+
+
+@pytest.mark.parametrize("n", [50_000, 1 << 22])
+def test_pick_cdf_scan_is_the_same_on_every_call(cuda, n):
+    """The pick's cdf scan on the card gives the same bits on every call
+    (a 1-D torch.cumsum does not) and agrees with the float64 cumsum."""
+    from abcsmc_tpu_torch.parallel.generation import _cumsum
+
+    w = torch.rand(n, generator=torch.Generator(device=cuda).manual_seed(n),
+                   device=cuda)
+    first = _cumsum(w)
+    for _ in range(10):
+        assert torch.equal(_cumsum(w), first)
+    ref = torch.cumsum(w.double(), 0)
+    assert float(((first.double() - ref).abs() / ref).max()) < 1e-5
+
+
+def _mesh_gen(ps, tr, sim, obs, devices, **kw):
+    from abcsmc_tpu_torch.parallel.mesh import particle_mesh
+
+    return Generation(ps, tr, sim, obs, mesh=particle_mesh(devices, **kw))
+
+
+def test_mesh_step_on_cuda_matches_one_shard(cuda):
+    """A 4-shard mesh of the card against one shard, float32, the same van
+    der Voet seed: the same component count and survivors (near-equal
+    distances may swap at the cut: the psums sum in another order), the
+    weights of the common survivors and the doubled variance to 1e-4; the
+    kernel runs once per shard on ceil(keep / 4) survivors."""
+    import dataclasses
+
+    n, keep = 32_771, 1_639          # neither divides by 4
+    _, ps, tr, _, obs, params, mets, state = _scale_problem(n, keep)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    st = tuple(torch.as_tensor(x, **f32) for x in state)
+    one = _mesh_gen(ps, tr, None, obs, ["cuda"])
+    four = _mesh_gen(ps, tr, None, obs, ["cuda"] * 4)
+    d1 = one.draw_step(torch.Generator(device=cuda).manual_seed(3), n)
+    d4 = dataclasses.replace(four.draw_step(torch.Generator().manual_seed(3),
+                                            n), vdv_seed=d1.vdv_seed)
+    res = {}
+    for name, gen, d in (("one", one, d1), ("four", four, d4)):
+        p = gen.shard_rows(torch.as_tensor(params, **f32), n)
+        m = gen.shard_rows(torch.as_tensor(mets, **f32), n)
+        kernels.mixture_logsumexp.launches = 0
+        res[name] = gen.step_precomputed(p, m, keep, n, d, st, n_valid=n)
+        res[name + "_launches"] = kernels.mixture_logsumexp.launches
+    a, b = res["one"], res["four"]
+    assert (res["one_launches"], res["four_launches"]) == (2, 8)
+    assert int(a.ncomp_used) == int(b.ncomp_used) > 1
+    sa, sb = a.survivor_idx.tolist(), b.survivor_idx.tolist()
+    both = set(sa) & set(sb)
+    assert len(both) >= 0.999 * keep
+    wa = dict(zip(sa, a.weights.tolist()))
+    wb = dict(zip(sb, b.weights.tolist()))
+    top = max(wa.values())
+    assert max(abs(wa[i] - wb[i]) for i in both) <= 1e-4 * top
+    np.testing.assert_allclose(b.doubled_variance.cpu().numpy(),
+                               a.doubled_variance.cpu().numpy(), rtol=1e-4)
+    assert sum(x.shape[0] for x in b.next_params) == 32_772
+    assert bool(ps.valid_mask(torch.cat(b.next_params)).all())
+
+
+def test_mesh_replay_on_one_card_equals_eager(cuda):
+    """A 4-shard mesh whose shards all sit on the card captures its step
+    into one CUDA graph and replays it: every set equals the sequential
+    loop's bit for bit, 2 launches per shard per later set."""
+    n, keep, gens = 8192, 410, 5
+    _, ps, tr, sim, obs, *_ = _scale_problem(n, keep)
+
+    def g():
+        return torch.Generator().manual_seed(9)
+
+    seq = _mesh_gen(ps, tr, sim, obs, ["cuda"] * 4)
+    kernels.mixture_logsumexp.launches = 0
+    last, states = seq.run(g(), [n] * gens, [keep] * gens)
+    assert kernels.mixture_logsumexp.launches == 8 * (gens - 1)
+    fused = _mesh_gen(ps, tr, sim, obs, ["cuda"] * 4)
+    assert fused.capturable
+    kernels.mixture_logsumexp.launches = 0
+    flast, hist = fused.run_scan(g(), n, keep, gens, full_history=True)
+    assert kernels.mixture_logsumexp.launches == 8 * (gens - 1)
+    assert (fused.graph_captures, fused.graph_replays) == (1, gens - 2)
+    for t, (sp, w, dv) in enumerate(states):
+        assert torch.equal(hist[1][t], sp)
+        assert torch.equal(hist[3][t], w)
+        assert torch.equal(hist[4][t], dv)
+    assert torch.equal(torch.cat(flast.metrics), torch.cat(last.metrics))
+
+
+def test_one_rank_nccl_step_equals_one_shard(cuda):
+    """The collectives through a one-rank NCCL group give the bits of the
+    one-shard step without a group."""
+    import socket
+
+    import torch.distributed as dist
+
+    n, keep = 8192, 410
+    _, ps, tr, sim, obs, params, mets, state = _scale_problem(n, keep)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    st = tuple(torch.as_tensor(x, **f32) for x in state)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        out = []
+        for group in (None, dist.group.WORLD):
+            gen = _mesh_gen(ps, tr, None, obs, ["cuda"], group=group)
+            assert gen.mesh.size == 1
+            d = gen.draw_step(torch.Generator(device=cuda).manual_seed(4), n)
+            out.append(gen.step_precomputed(
+                [torch.as_tensor(params, **f32)],
+                [torch.as_tensor(mets, **f32)], keep, n, d, st))
+    finally:
+        dist.destroy_process_group()
+    a, b = out
+    for f in ("survivor_idx", "weights", "doubled_variance", "ncomp_used"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert torch.equal(a.next_params[0], b.next_params[0])

@@ -143,10 +143,10 @@ def test_regression_helpers_equal_jax():
 
 
 # the names the port exports in place of the JAX package's: Generation is
-# the one-device ShardedGeneration; particle_mesh comes with multi-GPU;
+# ShardedGeneration (without a mesh on one device, or over particle_mesh);
 # resolve_device picks the torch device (no JAX counterpart)
 RENAMED = {"ShardedGeneration": "Generation"}
-NOT_YET = {"particle_mesh"}
+NOT_YET = set()
 PORT_ONLY = {"resolve_device"}
 
 

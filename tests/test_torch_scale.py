@@ -157,11 +157,11 @@ def test_chunked_step_holds_no_row_sized_intermediate(monkeypatch):
         return real(a, b)
 
     monkeypatch.setattr(torch.Tensor, "__matmul__", spy)
-    d, _, _ = gen._rank_chunked(torch.as_tensor(params),
-                                torch.as_tensor(mets), N, _tt(prev),
+    d, _, _ = gen._rank_chunked([torch.as_tensor(params)],
+                                [torch.as_tensor(mets)], N, _tt(prev),
                                 torch.tensor(7), 64)
     monkeypatch.undo()
-    assert d.shape == (N,)
+    assert d[0].shape == (N,)
     # the van der Voet window is min(n, 131,072) rows: here all N
     assert max(seen) == N and sorted(set(seen))[-2] <= 64
 
