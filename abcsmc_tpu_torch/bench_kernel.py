@@ -32,6 +32,13 @@ from abcsmc_tpu_torch.ops._build import load_library
 
 SHAPES = ((2048, 2048, 16), (50_000, 50_000, 6))
 MODES = ("auto", "static", "online")
+# Peak rates of one H100 SXM at its 700 W limit: the special-function unit
+# issues 16 ex2 per SM per clock (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0), TF32 tensor cores 495
+# TFLOP/s dense and HBM 3.35 TB/s (NVIDIA H100 data sheet).
+SFU_PER_SM_CLOCK = 16
+TF32_FLOPS = 495e12
+HBM_BYTES = 3.35e12
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -47,6 +54,40 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def kernel_bound_ms(n, m, p, device=0):
+    """The least time the card could take for one call at n x m x p: the
+    larger of its operations over their peak rate (one ex2 per logit on the
+    special-function units at the card's maximum SM clock; the 3xTF32 dot,
+    3 x 2 (p+2) flops per logit, on the tensor cores) and its bytes (each
+    input read once, the output written once) over the HBM rate."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    terms = {
+        "ex2": 1e3 * n * m / (sms * SFU_PER_SM_CLOCK * mhz * 1e6),
+        "tf32_dot": 1e3 * 3 * 2 * (p + 2) * n * m / TF32_FLOPS,
+        "bytes": 1e3 * 4 * (n * p + m * p + m + n) / HBM_BYTES,
+    }
+    worst = max(terms, key=terms.get)
+    return {"bound_ms": terms[worst], "terms_ms": terms,
+            "bound_by": "bytes" if worst == "bytes" else "operations",
+            "sm_clock_mhz": mhz, "sms": sms}
+
+
+def sampled_error_f64(a, b, log_w, got, rows: int, mode: str = "auto"):
+    """Max abs difference of ``got`` (the kernel's [n] output for a, b,
+    log_w) from the float64 plain version on ``rows`` evenly spaced query
+    rows (the plain version is a function of each query row by itself)."""
+    pick = torch.linspace(0, a.shape[0] - 1, min(rows, a.shape[0]),
+                          device=a.device).long().unique()
+    ref = kernels.mixture_logsumexp_reference(
+        a[pick].double(), b.double(), log_w.double(), mode=mode)
+    return float((got[pick].double() - ref).abs().max())
 
 
 def weight_inputs(n, m, p, seed, dev):

@@ -309,7 +309,8 @@ class CounterNoise:
 def shipped_mix(npar: int, nmet: int) -> np.ndarray:
     """The JAX package's linear-Gaussian mixing matrix
     ``jax.random.normal(PRNGKey(7), (npar, nmet))`` (float32), shipped for
-    the shapes the repo's configs use: (16, 100) and (6, 13)."""
+    the shapes the repo's configs and tools use: (16, 100), (6, 13) and
+    (2, 2)."""
     with np.load(_MIX_FILE) as data:
         key = f"mix_{npar}x{nmet}"
         if key not in data:

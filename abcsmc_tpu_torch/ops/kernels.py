@@ -123,20 +123,38 @@ class LaunchPlan(NamedTuple):
         return range(min(lo, m), min(hi, m))
 
 
+def _check_split(n_split: int, m: int):
+    n_stages = -(-m // _STAGE_CENTERS)
+    if not 1 <= n_split <= n_stages:
+        raise ValueError(
+            f"n_split must be in 1..{n_stages} (stages of {_STAGE_CENTERS} "
+            f"centers at m={m}), got {n_split!r}")
+
+
 @functools.lru_cache(maxsize=64)
-def launch_plan(n: int, m: int, p: int, sms: int, online: bool) -> LaunchPlan:
+def launch_plan(n: int, m: int, p: int, sms: int, online: bool, *,
+                n_split: int | None = None) -> LaunchPlan:
     """The launch plan of one call on a card with ``sms`` SMs: enough center
     splits that the partial kernel has about ``_BLOCKS_PER_SM`` blocks per
     SM (at keep 2,048 there are only 16 query blocks) and that no split
     sums more than ``_MAX_SPLIT_STAGES`` stages, no split empty. The cap
     bounds the length of each FP32 running sum: one split over 1,677,721
     centers read 3.1e-4 nats off the plain version on an H100, past the
-    2e-4 bound; the merge then adds the few per-split sums."""
+    2e-4 bound; the merge then adds the few per-split sums.
+
+    ``n_split`` (1..``n_stages``) asks for that many splits instead, the
+    counterpart of the TPU wrapper's ``block_i`` / ``block_j`` for tuning
+    sweeps: each split takes ``ceil(n_stages / n_split)`` stages and the
+    count is trimmed so that none is empty; the cap is not applied."""
     ks = -(-(p + 2) // 8)
     n_stages = -(-m // _STAGE_CENTERS)
     q_blocks = -(-n // _ROWS)
-    want = -(-_BLOCKS_PER_SM * sms // q_blocks)
-    n_split = max(1, min(want, n_stages), -(-n_stages // _MAX_SPLIT_STAGES))
+    if n_split is None:
+        want = -(-_BLOCKS_PER_SM * sms // q_blocks)
+        n_split = max(1, min(want, n_stages),
+                      -(-n_stages // _MAX_SPLIT_STAGES))
+    else:
+        _check_split(n_split, m)
     sps = -(-n_stages // n_split)
     n_split = -(-n_stages // sps)
     prologue_blocks = -(-n_stages * _STAGE_CENTERS // _PROLOGUE_THREADS)
@@ -166,7 +184,7 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _launch(a, b, log_w, mode: str):
+def _launch(a, b, log_w, mode: str, *, n_split: int | None = None):
     """One call of the kernel on the current stream: the prologue, then the
     static and/or online partial kernel (csrc ``mode`` 0 static, 1 online,
     2 auto). The workspace is one torch.empty; nothing syncs the host."""
@@ -174,7 +192,8 @@ def _launch(a, b, log_w, mode: str):
     m = b.shape[0]
     dev = a.device
     online = mode != "static"
-    plan = launch_plan(n, m, p, _sm_count(dev.index), online)
+    plan = launch_plan(n, m, p, _sm_count(dev.index), online,
+                       n_split=n_split)
     ws = torch.empty((plan.ws_floats,), dtype=torch.float32, device=dev)
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     base = ws.data_ptr()
@@ -226,7 +245,8 @@ def _check_cuda_inputs(a, b, log_w):
         raise ValueError(f"unsupported sizes n={n}, m={m}, p={p}")
 
 
-def mixture_logsumexp(a, b, log_w, *, mode: str = "auto"):
+def mixture_logsumexp(a, b, log_w, *, mode: str = "auto",
+                      n_split: int | None = None):
     """out[i] = logsumexp_j(log_w[j] - |a_i - b_j|^2 / 2), [n].
 
     a: [n, p] scaled queries; b: [m, p] scaled centers; log_w: [m]. CUDA
@@ -234,13 +254,17 @@ def mixture_logsumexp(a, b, log_w, *, mode: str = "auto"):
     kernel, which forms the logits in 3xTF32 on tensor cores (the TPU's
     precision "high"); every value of the config's ``weight_precision``
     runs that path. CPU tensors run :func:`mixture_logsumexp_reference`.
-    On CUDA no mode syncs the host."""
+    On CUDA no mode syncs the host. ``n_split`` overrides the launch
+    plan's center split (:func:`launch_plan`; None keeps the plan's own)
+    and is validated on both devices; the plain version has no split."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if n_split is not None:
+        _check_split(n_split, b.shape[0])
     if not a.is_cuda:
         return mixture_logsumexp_reference(a, b, log_w, mode=mode)
     _check_cuda_inputs(a, b, log_w)
-    return _launch(a, b, log_w, mode)
+    return _launch(a, b, log_w, mode, n_split=n_split)
 
 
 #: partial-kernel launches issued by :func:`mixture_logsumexp`: 1 per

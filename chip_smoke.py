@@ -119,6 +119,21 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
              otherwise); the pick's cdf scan repeated 30 times at 50,000,
              2^22 and 2^26 entries (no repeat may differ) beside
              torch.cumsum's.
+14. study   - the ten study harnesses of abcsmc_tpu_torch.tools, each
+             through its main() in this process (STUDY_RUNS): the weight
+             kernel at 50,000^2, 200,000^2 and 500,000^2 x 6 (auto and
+             online) and apart at 838,860^2 and 1,677,721^2 x 6 (the
+             keeps of hbm_scale's 2^24 and 2^25 steps), each within 2e-4
+             nats of the float64 plain version on 4,096 sampled rows, the
+             truncation study and a 10M x 6 x 13 generation with 500,000
+             survivors; the center-split sweep at 200,000^2 x 6 (every
+             split within the launch plan's cap held to 2e-4 nats); one
+             50M-row generation with keep 500,000; run_device with the
+             SQLite mirror at 1M rows; the reference-shape fit twice; the
+             30-set quick-start; the 1M-particle run; truth recovery at
+             the JAX tool's sizes in float32 (its own bounds); SBC with 10
+             replicates of each configuration at n = 1,024; the native
+             pool with 500 jobs. A harness's failed check ends the run.
 
 ``python3 chip_smoke.py --only fused,surfaces`` runs the build, the named
 phases (dengue too where surfaces is named) and the closing lines alone.
@@ -142,7 +157,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from contextlib import closing, redirect_stderr
+from contextlib import closing, redirect_stderr, redirect_stdout
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -156,13 +171,6 @@ EXTRA_SHAPES = ((4096, 4096, 80), (2048, 2048, 1), (37, 1000, 1))
 # the mesh phase's fits: example -> (shards, sets; None = as shipped)
 MESH_RUNS = {"dengue_surrogate": (3, 3), "sir": (2, None), "dice": (2, None)}
 HELD = set()        # every (n, m, p) the kernel phase held against plain
-# Peak rates of one H100 SXM at its 700 W limit: the special-function unit
-# issues 16 ex2 per SM per clock (CUDA C++ Programming Guide, arithmetic
-# instruction throughput, compute capability 9.0), TF32 tensor cores 495
-# TFLOP/s dense and HBM 3.35 TB/s (NVIDIA H100 data sheet).
-SFU_PER_SM_CLOCK = 16
-TF32_FLOPS = 495e12
-HBM_BYTES = 3.35e12
 
 
 def emit(obj):
@@ -175,20 +183,11 @@ def check(cond, what):
 
 
 def cuda_ms(fn, reps):
-    """Mean milliseconds per call, CUDA events around `reps` calls after one
-    warm-up call."""
-    import torch
+    """Mean milliseconds per call (``bench_kernel.cuda_ms``: CUDA events
+    around ``reps`` calls after one warm-up call)."""
+    from abcsmc_tpu_torch.bench_kernel import cuda_ms as timer
 
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    return timer(fn, reps)
 
 
 def kernel_inputs(n, m, p, seed):
@@ -214,28 +213,11 @@ def kernel_inputs(n, m, p, seed):
 
 
 def kernel_bound_ms(n, m, p):
-    """The least time the card could take for one call at n x m x p: the
-    larger of its operations over their peak rate (one ex2 per logit on the
-    special-function units at the card's maximum SM clock; the 3xTF32 dot,
-    3 x 2 (p+2) flops per logit, on the tensor cores) and its bytes (each
-    input read once, the output written once) over the HBM rate."""
-    import torch
+    """``bench_kernel.kernel_bound_ms``: the least time the card could
+    take for one call at n x m x p, and what bounds it."""
+    from abcsmc_tpu_torch.bench_kernel import kernel_bound_ms as bound
 
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True,
-    ).stdout.split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    terms = {
-        "ex2": 1e3 * n * m / (sms * SFU_PER_SM_CLOCK * mhz * 1e6),
-        "tf32_dot": 1e3 * 3 * 2 * (p + 2) * n * m / TF32_FLOPS,
-        "bytes": 1e3 * 4 * (n * p + m * p + m + n) / HBM_BYTES,
-    }
-    worst = max(terms, key=terms.get)
-    return {"bound_ms": terms[worst], "terms_ms": terms,
-            "bound_by": "bytes" if worst == "bytes" else "operations",
-            "sm_clock_mhz": mhz, "sms": sms}
+    return bound(n, m, p)
 
 
 def example_kernel_shapes():
@@ -1953,6 +1935,76 @@ def phase_mesh():
     return launches, errs
 
 
+# --------------------------------------------------------------------------- #
+# study: the harnesses of abcsmc_tpu_torch.tools, in process
+# --------------------------------------------------------------------------- #
+
+# (tool, argv): the JAX tools' own sizes unless cut here
+STUDY_RUNS = (
+    ("bench_weight_kernel", []),
+    # the kernel apart at the keeps of hbm_scale's 2^24 and 2^25 steps
+    ("bench_weight_kernel", ["--k", "838860", "1677721", "--reps", "1",
+                             "--skip-10m"]),
+    ("sweep_weight_kernel", []),
+    ("bench_scale", ["--n", "50000000", "--keep", "500000", "--sim"]),
+    ("mirror_scale", ["--n", "1000000"]),     # the JAX table's 1M row
+    ("bench_reference_shape", []),
+    ("quickstart_chip", []),
+    ("million_run", []),
+    ("stat_validate", []),
+    ("calibration_study", ["--reps", "10", "--n", "1024"]),
+    ("bench_native", ["--jobs", "500"]),
+)
+
+
+def study_kernel_errs(tool, lines):
+    """The kernel-against-float64 errors a harness held to 2e-4 nats (a
+    swept split beyond the plan's cap is reported, not held)."""
+    errs = {}
+    for row in lines:
+        err = row.get("max_abs_err_f64_sampled")
+        if err is None or row.get("within_cap") is False:
+            continue
+        errs[f"study {tool} {row['metric']}"] = err
+    return errs
+
+
+def phase_study():
+    import importlib
+
+    import torch
+
+    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
+
+    out_dir = SMOKE_DIR / "study"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    mixture_logsumexp.launches = 0
+    errs, seconds = {}, {}
+    for i, (tool, argv) in enumerate(STUDY_RUNS):
+        out = out_dir / f"{i:02d}_{tool}.jsonl"
+        main_fn = importlib.import_module(
+            f"abcsmc_tpu_torch.tools.{tool}").main
+        t0 = time.perf_counter()
+        with redirect_stdout(io.StringIO()):      # the lines go to `out`
+            rc = main_fn([*argv, "--out", str(out)])
+        check(rc == 0, f"study {tool} {argv}: exit {rc}")
+        lines = [json.loads(x) for x in out.read_text().splitlines()]
+        seconds[f"{i:02d}_{tool}"] = time.perf_counter() - t0
+        errs.update(study_kernel_errs(tool, lines))
+        emit({"phase": "study", "tool": tool, "argv": argv,
+              "seconds": seconds[f"{i:02d}_{tool}"], "lines": lines[1:]})
+        torch.cuda.empty_cache()
+    launches = mixture_logsumexp.launches
+    check(launches > 0, "study phase launched no kernel")
+    check(max(errs.values()) <= TOL, f"study kernel errors {errs}")
+    emit({"phase": "study", "launches": launches, "seconds": seconds,
+          "kernel_max_abs_err_f64": max(errs.values()),
+          "wall_s": time.perf_counter() - t_phase})
+    return launches, errs
+
+
 def main() -> int:
     if not (REPO / "abcsmc_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -2002,7 +2054,8 @@ def main() -> int:
         if wanted(name):
             launches += phase()
     for name, phase in (("hbm_scale", phase_hbm_scale),
-                        ("fused", phase_fused), ("mesh", phase_mesh)):
+                        ("fused", phase_fused), ("mesh", phase_mesh),
+                        ("study", phase_study)):
         if wanted(name):
             more, more_errs = phase()
             launches += more

@@ -785,3 +785,67 @@ def test_one_rank_nccl_step_equals_one_shard(cuda):
     for f in ("survivor_idx", "weights", "doubled_variance", "ncomp_used"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     assert torch.equal(a.next_params[0], b.next_params[0])
+
+
+def test_split_override_holds_at_every_split(cuda):
+    """``n_split`` at 200,000^2 x 6 (the sweep's shape): every split the
+    sweep times, from 1 to one 64-center stage a split, within 2e-4 nats of
+    the float64 plain version on sampled rows; the plan's own count, asked
+    for explicitly, gives the bits of ``n_split=None``."""
+    from abcsmc_tpu_torch.bench_kernel import sampled_error_f64
+    from abcsmc_tpu_torch.tools.sweep_weight_kernel import split_points
+
+    k = 200_000
+    a, b, lw = _scaled(k, k, 6, 3, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for mode in ("static", "online"):
+        base = kernels.mixture_logsumexp(a, b, lw, mode=mode)
+        own = kernels.launch_plan(k, k, 6, sms, mode != "static").n_split
+        assert torch.equal(kernels.mixture_logsumexp(
+            a, b, lw, mode=mode, n_split=own), base)
+        for ask in split_points(k)[1:]:
+            got = kernels.mixture_logsumexp(a, b, lw, mode=mode,
+                                            n_split=ask)
+            err = sampled_error_f64(a, b, lw, got, 2048, mode=mode)
+            assert err <= TOL, (mode, ask, err)
+
+
+# each study harness at a small size on the card (chip_smoke.py's study
+# phase runs them at full size)
+SMALL_STUDY = {
+    "bench_weight_kernel": ["--k", "5000", "--truncation-k", "512", "--n",
+                            "20000", "--keep", "1000", "--reps", "2"],
+    "sweep_weight_kernel": ["--k-accuracy", "4000", "--k-sweep", "6000",
+                            "--reps", "2"],
+    "bench_scale": ["--n", "100000", "--keep", "5000", "--sim", "--reps",
+                    "2"],
+    "mirror_scale": ["--n", "20000", "--keep", "1000"],
+    "bench_reference_shape": ["--n", "2000", "--sets", "3"],
+    "quickstart_chip": ["--sets", "6"],
+    "million_run": ["--n", "50000", "--sets", "2"],
+    "stat_validate": ["--fits", "gaussian", "--n", "5000", "--keep", "500",
+                      "--sets", "5"],
+    "calibration_study": ["--reps", "1", "--n", "256", "--configs",
+                          "lg,ma2"],
+    "bench_native": ["--jobs", "50", "--workers", "1", "2"],
+}
+
+
+@pytest.mark.parametrize("tool", sorted(SMALL_STUDY))
+def test_study_harness_on_the_card(cuda, tool, tmp_path):
+    """The harness's main on CUDA: exit 0 (its own checks held), the card
+    line first, and every time it reports measured (not null)."""
+    import importlib
+    import json
+
+    out = tmp_path / "lines.jsonl"
+    main = importlib.import_module(f"abcsmc_tpu_torch.tools.{tool}").main
+    assert main([*SMALL_STUDY[tool], "--out", str(out)]) == 0
+    lines = [json.loads(x) for x in out.read_text().splitlines()]
+    assert lines[0]["tool"] == tool and lines[0]["card"] != "cpu"
+    assert len(lines) > 1
+    for row in lines[1:]:
+        if row.get("unit") in ("ms", "s"):
+            assert row["value"] > 0, row
+        if "ms" in row:
+            assert row["ms"] > 0, row

@@ -165,7 +165,7 @@ def _run(s, params, seeds):
                        dtype=torch.float64)
 
 
-@pytest.mark.parametrize("shape", [(16, 100), (6, 13)])
+@pytest.mark.parametrize("shape", [(16, 100), (6, 13), (2, 2)])
 def test_shipped_mix_bit_equal_to_jax(shape):
     want = np.asarray(jax.random.normal(jax.random.PRNGKey(7), shape,
                                         dtype=jnp.float32))

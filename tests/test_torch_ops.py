@@ -353,6 +353,44 @@ def test_launch_plan_fills_the_card():
     assert big.q_blocks * (big.n_split - 1) < kernels._BLOCKS_PER_SM * 132
 
 
+@pytest.mark.parametrize("m,n_split", [
+    (200_000, 1), (200_000, 2), (200_000, 3), (200_000, 1024),
+    (200_000, 2048), (200_000, 3125), (1000, 16), (65, 2), (1, 1),
+])
+def test_launch_plan_split_override(m, n_split):
+    """``n_split`` (the sweep's override) gives splits of
+    ceil(n_stages / n_split) stages, trimmed so that none is empty: every
+    center in exactly one split, no more splits than asked; the plan's own
+    count, asked for explicitly, is the plan without the override."""
+    n, p, sms = 200_000, 6, 132
+    for online in (False, True):
+        plan = kernels.launch_plan(n, m, p, sms, online, n_split=n_split)
+        assert plan.stages_per_split == -(-plan.n_stages // n_split)
+        assert 1 <= plan.n_split <= n_split
+        seen = np.zeros(m, np.int64)
+        for y in range(plan.n_split):
+            r = plan.split_centers(y, m)
+            assert len(r) > 0
+            seen[r.start:r.stop] += 1
+        assert (seen == 1).all()
+        own = kernels.launch_plan(n, m, p, sms, online)
+        assert kernels.launch_plan(n, m, p, sms, online,
+                                   n_split=own.n_split) == own
+
+
+def test_split_override_out_of_range_raises():
+    a, b = torch.zeros((4, 6)), torch.zeros((130, 6))
+    lw = torch.zeros(130)
+    for bad in (0, 4, -1):       # 130 centers are 3 stages of 64
+        with pytest.raises(ValueError, match="n_split"):
+            kernels.launch_plan(4, 130, 6, 132, False, n_split=bad)
+        with pytest.raises(ValueError, match="n_split"):
+            kernels.mixture_logsumexp(a, b, lw, n_split=bad)
+    torch.testing.assert_close(
+        kernels.mixture_logsumexp(a, b, lw, n_split=3),
+        kernels.mixture_logsumexp_reference(a, b, lw))
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_stratum_points_match_jax(dtype):
     """Systematic-resampling strata (i + u) * scale, split-index form, up to
