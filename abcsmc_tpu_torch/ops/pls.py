@@ -146,6 +146,12 @@ def _as_2d(y):
     return y[:, None] if y.dim() == 1 else y
 
 
+def _fit_arrays(x, y, ncomp: int):
+    """(R, P, Q) of PLS of ``y`` [n, p] on ``x`` [n, m] with ``ncomp``
+    components: the Grams, then :func:`_fit_gram`."""
+    return _fit_gram(x.T @ x, x.T @ y, ncomp)
+
+
 def fit(x, y, ncomp: int | None = None) -> PLSModel:
     """PLS of Y on X (both already z-scored by the caller); ``ncomp``
     defaults to min(n-1, m), NIPALS' maximum meaningful rank."""
@@ -154,7 +160,7 @@ def fit(x, y, ncomp: int | None = None) -> PLSModel:
     max_rank = min(x.shape[0] - 1, x.shape[1])
     a = max_rank if ncomp is None else min(int(ncomp), max_rank)
     a = max(a, 1)
-    R, P, Q = _fit_gram(x.T @ x, x.T @ y, a)
+    R, P, Q = _fit_arrays(x, y, a)
     return PLSModel(rotations=R, x_loadings=P, y_loadings=Q, ncomp=a)
 
 

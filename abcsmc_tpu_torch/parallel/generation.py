@@ -299,14 +299,16 @@ _DRAW_FIELDS = tuple(f.name for f in dataclasses.fields(StepDraws))
 
 class _CapturedStep:
     """One later-set step captured into a CUDA graph: static input tensors
-    (population, previous state, draws), the static result, and the number
-    of kernel launches the graph holds."""
+    (population or, for a precomputed step, parameters and metrics;
+    previous state; draws), the static result, and the number of kernel
+    launches the graph holds."""
 
     def __init__(self, graph, params, seeds, state, draws, result,
-                 kernel_launches):
+                 kernel_launches, metrics=None):
         self.graph = graph
         self.params = params
         self.seeds = seeds
+        self.metrics = metrics          # a precomputed step's static metrics
         self.state = state
         self.draws = draws
         self.result = result
@@ -1214,18 +1216,17 @@ class Generation:
     def _global_topk(self, params, mets, d, keep: int):
         """(survivor global indices, parameters, metrics) of the ``keep``
         least distances over every shard (1254-1295). Candidates are in
-        shard-major order, as in the JAX step."""
+        shard-major order, as in the JAX step. One shard runs the same
+        gathers (they return their one part, and count as the JAX
+        one-device program's do) and skips the second top-K."""
         mesh = self.mesh
-        if mesh.size == 1:
-            _, surv_idx = torch.topk(-d[0], keep, sorted=True)
-            return surv_idx, params[0][surv_idx], mets[0][surv_idx]
         local_n = d[0].shape[0]
         k_local = min(keep, local_n)
         loc = [torch.topk(-di, k_local, sorted=True) for di in d]
-        cand_d = mesh.all_gather_cat([-neg for neg, _ in loc])
-        if self._topk_two_stage_active(keep, local_n):
+        cand_neg = mesh.all_gather_cat([neg for neg, _ in loc])
+        if mesh.size > 1 and self._topk_two_stage_active(keep, local_n):
             cand_lidx = mesh.all_gather_cat([li for _, li in loc])
-            _, pos = torch.topk(-cand_d, keep, sorted=True)
+            _, pos = torch.topk(cand_neg, keep, sorted=True)
             owner = torch.div(pos, k_local, rounding_mode="floor")
             slot = cand_lidx[pos]
             surv_idx = owner * local_n + slot
@@ -1242,8 +1243,13 @@ class Generation:
         cand_met = mesh.all_gather_cat([m[li] for m, (_, li)
                                         in zip(mets, loc)])
         cand_gidx = mesh.all_gather_cat([
-            li + mesh.row_offset(i, local_n) for i, (_, li) in enumerate(loc)])
-        _, pos = torch.topk(-cand_d, keep, sorted=True)
+            li + off if (off := mesh.row_offset(i, local_n)) else li
+            for i, (_, li) in enumerate(loc)])
+        if mesh.size == 1:
+            # one shard's sorted top-K are the survivors (each gather above
+            # returned its one part)
+            return cand_gidx, cand_par, cand_met
+        _, pos = torch.topk(cand_neg, keep, sorted=True)
         return cand_gidx[pos], cand_par[pos], cand_met[pos]
 
     def _log_weights(self, surv_par, prev_state, keep: int):
@@ -1566,8 +1572,6 @@ class Generation:
         allocated inside the capture (the graph's own pool) and its
         arrival counters and rerun flag are reset by its prologue kernel,
         which is part of the graph."""
-        from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
-
         t0 = time.perf_counter()
         params = _tmap(torch.empty_like, like.next_params)
         seeds = _tmap(torch.empty_like, like.next_seeds)
@@ -1583,6 +1587,21 @@ class Generation:
                                     like.doubled_variance)):
             dst.copy_(src)
         self._copy_draws(draws, like_draws)
+
+        def body():
+            mets = self._simulate(params, seeds)
+            return self._step(params, mets, keep, n, draws, state, None)
+
+        graph, result, held = self._record(body)
+        self.capture_seconds += time.perf_counter() - t0
+        return _CapturedStep(graph, params, seeds, state, draws, result, held)
+
+    def _record(self, body):
+        """Capture ``body()`` (a step on static inputs) into a CUDA graph.
+        Returns (graph, the static result, the kernel launches the graph
+        holds)."""
+        from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
+
         before = mixture_logsumexp.launches
         torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()
@@ -1590,16 +1609,55 @@ class Generation:
         self._capturing = True
         try:
             with torch.cuda.graph(graph):
-                mets = self._simulate(params, seeds)
-                result = self._step(params, mets, keep, n, draws, state, None)
+                result = body()
         finally:
             self._capturing = False
         # the wrapper counted the launches it recorded; none ran yet
         held = mixture_logsumexp.launches - before
         mixture_logsumexp.launches = before
         self.graph_captures += 1
+        return graph, result, held
+
+    def capture_precomputed(self, params, metrics, keep: int, n_next: int,
+                            draws: StepDraws, prev_state=None,
+                            n_valid: int | None = None) -> _CapturedStep:
+        """:meth:`step_precomputed` captured into a CUDA graph, on static
+        copies of its inputs (parameters, metrics, previous state, draws):
+        the counterpart of the one compiled program ``jax.jit`` dispatches.
+        The step first runs once eagerly on a side stream (the kernel built
+        and every cached constant made, so the capture meets no first-use
+        work). :meth:`replay_precomputed` then runs it on new draws."""
+        if not self.capturable:
+            raise ValueError(
+                "capture_precomputed needs a capturable step (a CUDA device, "
+                "every shard of a one-process mesh on it)")
+        t0 = time.perf_counter()
+        params = _tmap(torch.clone, [p.to(self.dtype)
+                                     for p in self._in(params)])
+        mets = _tmap(torch.clone, [m.to(self.dtype)
+                                   for m in self._in(metrics)])
+        state = None if prev_state is None else tuple(
+            torch.clone(x) for x in prev_state)
+        draws = StepDraws(*(_tmap(torch.clone, getattr(draws, f))
+                            for f in _DRAW_FIELDS))
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._step(params, mets, keep, n_next, draws, state, n_valid)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph, result, held = self._record(lambda: self._step(
+            params, mets, keep, n_next, draws, state, n_valid))
         self.capture_seconds += time.perf_counter() - t0
-        return _CapturedStep(graph, params, seeds, state, draws, result, held)
+        return _CapturedStep(graph, params, None, state, draws, result, held,
+                             metrics=mets)
+
+    def replay_precomputed(self, cap: _CapturedStep,
+                           draws: StepDraws) -> GenerationResult:
+        """One step of :meth:`capture_precomputed`'s graph on ``draws``
+        (copied into the static draws; the population, metrics and state
+        are the captured ones). The result is the graph's static output,
+        valid until the next replay."""
+        return self._out_result(self._replay(cap, None, None, None, draws))
 
     @staticmethod
     def _copy_draws(dst: StepDraws, src: StepDraws):
@@ -1610,19 +1668,21 @@ class Generation:
     def _replay(self, cap: _CapturedStep, params, seeds, state,
                 draws: StepDraws) -> GenerationResult:
         """One set through the captured step: copy its inputs into the
-        static buffers, replay, and return the static result (valid until
-        the next replay). A MULTIVARIATE step's count is read here, once
-        per set, and a set whose rows were not all accepted in the graph's
-        block is finished eagerly in place (:meth:`_finish_rejection`)
-        before the caller draws the next set."""
+        static buffers (None: keep the captured ones), replay, and return
+        the static result (valid until the next replay). A MULTIVARIATE
+        step's count is read here, once per set, and a set whose rows were
+        not all accepted in the graph's block is finished eagerly in place
+        (:meth:`_finish_rejection`) before the caller draws the next set."""
         from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
 
         events = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
         events[0].record()
-        _copy_into(cap.params, params)
-        _copy_into(cap.seeds, seeds)
-        for dst, src in zip(cap.state, state):
+        if params is not None:
+            _copy_into(cap.params, params)
+        if seeds is not None:
+            _copy_into(cap.seeds, seeds)
+        for dst, src in zip(cap.state or (), state or ()):
             dst.copy_(src)
         self._copy_draws(cap.draws, draws)
         cap.graph.replay()

@@ -35,6 +35,9 @@ import os
 import numpy as np
 import torch
 
+#: the kinds of :attr:`ParticleMesh.collectives`
+COLLECTIVE_KINDS = ("psum", "pmin", "all_gather")
+
 #: default seconds a collective of :func:`initialize_distributed`'s group
 #: waits for its peers before it raises
 DEFAULT_TIMEOUT_S = 600.0
@@ -110,7 +113,20 @@ class ParticleMesh:
     virtual mesh); ``group`` is the ``torch.distributed`` process group the
     mesh spans, None for a one-process mesh without collectives. Every
     process must hold the same number of shards; process ``r``'s shards are
-    the global shards ``r * n_local .. (r + 1) * n_local - 1``."""
+    the global shards ``r * n_local .. (r + 1) * n_local - 1``.
+
+    Every :meth:`psum`, :meth:`pmin`, :meth:`all_gather` and
+    :meth:`all_gather_cat` call adds to :attr:`collectives`, by kind, one
+    to ``count`` and its per-shard payload to ``bytes``, with the
+    definitions of ``tools/scaling_analysis.py`` of the JAX package: a
+    reduction counts one shard's partial, a gather the gathered result
+    (every shard's part). Each call counts, a virtual mesh's and a
+    one-shard mesh's too, where the call returns its one part and no data
+    moves: the counts are the step's collectives whatever the mesh. They
+    are host integers read from shapes (no device work, no sync); in a
+    CUDA graph capture the calls run, and count, once, at capture, and a
+    replay adds nothing. :meth:`reset_collectives` zeroes them.
+    """
 
     def __init__(self, devices, group=None):
         devs = []
@@ -135,6 +151,7 @@ class ParticleMesh:
         self.n_local = len(devs)
         self.size = self.n_local * self.process_count
         self.first_shard = self.process_index * self.n_local
+        self.reset_collectives()
         self._comm = None
         if group is not None:
             backend = _dist().get_backend(group)
@@ -208,9 +225,20 @@ class ParticleMesh:
         dist.all_gather(out, local, group=self.group)
         return torch.stack(out)
 
-    def all_gather(self, parts):
-        """Every shard's tensor, in shard order, on the lead device:
-        ``parts`` holds this process's (equal shapes on every shard)."""
+    def reset_collectives(self):
+        """Zero the collective counters (:attr:`collectives`)."""
+        self.collectives = {kind: {"count": 0, "bytes": 0}
+                            for kind in COLLECTIVE_KINDS}
+
+    def _count(self, kind: str, part, shards: int = 1):
+        """Add one ``kind`` collective to :attr:`collectives`: ``shards``
+        times the bytes of one shard's ``part``. Shape and dtype alone: no
+        device work, no sync."""
+        entry = self.collectives[kind]
+        entry["count"] += 1
+        entry["bytes"] += shards * part.numel() * part.element_size()
+
+    def _all_gather(self, parts):
         if self.group is None:
             return [p.to(self.lead) for p in parts]
         local = torch.stack([p.to(self._comm) for p in parts])
@@ -218,20 +246,28 @@ class ParticleMesh:
         return [x.to(self.lead) for x in every.reshape(
             self.size, *local.shape[1:]).unbind(0)]
 
+    def all_gather(self, parts):
+        """Every shard's tensor, in shard order, on the lead device:
+        ``parts`` holds this process's (equal shapes on every shard)."""
+        self._count("all_gather", parts[0], self.size)
+        return self._all_gather(parts)
+
     def all_gather_cat(self, parts):
         """:meth:`all_gather` concatenated along axis 0."""
+        self._count("all_gather", parts[0], self.size)
         if self.group is None and len(parts) == 1:
             return parts[0]
-        return torch.cat(self.all_gather(parts))
+        return torch.cat(self._all_gather(parts))
 
     def psum(self, parts):
         """The sum over every shard of the per-shard partials, in shard
         order, on the lead device: the same bits on every process and for
         every process layout of the same shard count. One shard without a
         group returns its partial itself."""
+        self._count("psum", parts[0])
         if self.group is None and len(parts) == 1:
             return parts[0]
-        every = self.all_gather(parts)
+        every = self._all_gather(parts)
         acc = every[0]
         for x in every[1:]:
             acc = acc + x
@@ -239,9 +275,10 @@ class ParticleMesh:
 
     def pmin(self, parts):
         """The elementwise minimum over every shard's partial."""
+        self._count("pmin", parts[0])
         if self.group is None and len(parts) == 1:
             return parts[0]
-        return torch.stack(self.all_gather(parts)).amin(0)
+        return torch.stack(self._all_gather(parts)).amin(0)
 
     def any_process(self, flag: bool) -> bool:
         """True when ``flag`` is set on any process (False everywhere

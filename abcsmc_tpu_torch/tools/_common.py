@@ -1,5 +1,6 @@
-"""What the study harnesses share: the common flags, the device rule, the
-card line, JSON lines and the linear-Gaussian population they time.
+"""What the study harnesses and the bench programs share: the common
+flags, the device rule, the card line, JSON lines, the unit-box
+generation step and the linear-Gaussian population they time.
 
 Every harness takes ``--device`` (default ``cuda``, through
 :func:`abcsmc_tpu_torch.resolve_device`), ``--seed`` (its
@@ -89,18 +90,31 @@ class Study:
         return None
 
     def sync(self):
-        if self.on_card:
-            torch.cuda.synchronize(self.device)
+        sync(self.device)
+
+
+def needs_cuda(device, prog: str) -> bool:
+    """True (after a message) when CUDA was asked for and there is none:
+    the caller exits 2."""
+    if torch.device(device).type == "cuda" and \
+            not torch.cuda.is_available():
+        print(f"{prog}: needs a CUDA device (torch.cuda.is_available() is "
+              "False); pass --device cpu to run on the CPU",
+              file=sys.stderr)
+        return True
+    return False
+
+
+def sync(device: torch.device):
+    """Wait for ``device``'s work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def start(tool: str, args: argparse.Namespace) -> Study | None:
     """The harness's :class:`Study`, or None (the caller exits 2) when CUDA
     was asked for and there is none."""
-    if torch.device(args.device).type == "cuda" and \
-            not torch.cuda.is_available():
-        print(f"{tool}: needs a CUDA device (torch.cuda.is_available() is "
-              "False); pass --device cpu to run on the CPU",
-              file=sys.stderr)
+    if needs_cuda(args.device, tool):
         return None
     return Study(tool, args)
 
@@ -137,42 +151,57 @@ def unit_box_config(n: int, keep: int, obs, npar: int = 6, sets: int = 2,
     }
 
 
-def generation(raw: dict, simulator, st: Study, **kw):
-    """The generation step of config ``raw`` on the study's device."""
+def generation(raw: dict, simulator, devices, dtype=torch.float32, **kw):
+    """The generation step of config ``raw``: one plain step on
+    ``devices[0]``, or a particle mesh over ``devices`` when there are
+    more (repeats make a virtual mesh)."""
     from abcsmc_tpu_torch.config import parse_config
     from abcsmc_tpu_torch.models.parameters import ParameterSet
     from abcsmc_tpu_torch.models.transforms import ParameterTransform
     from abcsmc_tpu_torch.parallel.generation import Generation
+    from abcsmc_tpu_torch.parallel.mesh import particle_mesh
 
     cfg = parse_config(raw)
+    where = ({"device": devices[0]} if len(devices) == 1
+             else {"mesh": particle_mesh(devices)})
     return Generation(
         ParameterSet.from_specs(cfg.parameters),
         ParameterTransform(cfg.parameters), simulator,
-        np.array([m.value for m in cfg.metrics]), device=st.device,
-        dtype=st.dtype, **kw)
+        np.array([m.value for m in cfg.metrics]), dtype=dtype, **where,
+        **kw)
 
 
-def population(n: int, mix, st: Study, block: int = 1 << 21):
+def step_generator(gen, seed: int = 0) -> torch.Generator:
+    """The step's draws' generator: on the step's device for one shard, on
+    the host for a mesh (its shards seed their own from it)."""
+    dev = gen.device if gen.mesh.size == 1 else torch.device("cpu")
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def population(n: int, mix, g: torch.Generator, dtype=torch.float32,
+               block: int = 1 << 21):
     """Parameters uniform on [0, 1]^P and metrics = params @ mix + 0.3
-    N(0, 1), made on the study's device block by block from its
-    generator."""
-    g, dev, dt = st.generator, st.device, st.dtype
-    mix = torch.as_tensor(np.asarray(mix)).to(dev, dt)
-    params = torch.rand((n, mix.shape[0]), generator=g, device=dev, dtype=dt)
-    mets = torch.empty((n, mix.shape[1]), device=dev, dtype=dt)
+    N(0, 1), made block by block from ``g`` on its device."""
+    dev = g.device
+    mix = torch.as_tensor(np.asarray(mix)).to(dev, dtype)
+    params = torch.rand((n, mix.shape[0]), generator=g, device=dev,
+                        dtype=dtype)
+    mets = torch.empty((n, mix.shape[1]), device=dev, dtype=dtype)
     for start in range(0, n, block):
         rows = slice(start, min(start + block, n))
         mets[rows] = params[rows] @ mix
         mets[rows] += 0.3 * torch.randn(mets[rows].shape, generator=g,
-                                        device=dev, dtype=dt)
+                                        device=dev, dtype=dtype)
     return params, mets
 
 
-def previous_state(keep: int, npar: int, st: Study):
-    """The tools' previous generation: ``keep`` survivors uniform on
-    [0.3, 0.7]^P, equal weights, doubled variance 0.02."""
-    g, dev, dt = st.generator, st.device, st.dtype
+def previous_state(keep: int, npar: int, g: torch.Generator,
+                   dtype=torch.float32):
+    """The tools' previous generation, from ``g`` on its device: ``keep``
+    survivors uniform on [0.3, 0.7]^P, equal weights, doubled variance
+    0.02."""
+    dev = g.device
     return (0.3 + 0.4 * torch.rand((keep, npar), generator=g, device=dev,
-                                   dtype=dt),
-            torch.full((keep,), 1.0 / keep, device=dev, dtype=dt),
-            torch.full((npar,), 0.02, device=dev, dtype=dt))
+                                   dtype=dtype),
+            torch.full((keep,), 1.0 / keep, device=dev, dtype=dtype),
+            torch.full((npar,), 0.02, device=dev, dtype=dtype))

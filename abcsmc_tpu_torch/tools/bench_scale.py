@@ -52,13 +52,14 @@ def main(argv=None) -> int:
 
     n, keep = args.n, args.keep
     mix = np.random.default_rng(args.seed).normal(size=(NPAR, NMET))
-    params, mets = _common.population(n, mix, st)
+    params, mets = _common.population(n, mix, st.generator, st.dtype)
     seeds = (torch.randint(0, 2**31 - 1, (n,), generator=st.generator,
                            device=st.device) if args.sim else None)
-    state = _common.previous_state(keep, NPAR, st)
+    state = _common.previous_state(keep, NPAR, st.generator, st.dtype)
     gen = _common.generation(
         _common.unit_box_config(n, keep, [0.0] * NMET, npar=NPAR),
-        make_linear_gaussian_simulator(NPAR, NMET, mix=mix), st,
+        make_linear_gaussian_simulator(NPAR, NMET, mix=mix), [st.device],
+        st.dtype,
         weight_precision=args.precision, row_block=args.row_block,
         max_pls_components=args.max_comp)
     tag = (f"N={n} keep={keep} precision={args.precision}"

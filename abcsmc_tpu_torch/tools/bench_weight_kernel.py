@@ -127,13 +127,15 @@ def generation_points(st: _common.Study, n: int, keep: int, reps: int):
     )
 
     sim = make_linear_gaussian_simulator(P, NMET)
-    params, mets = _common.population(n, shipped_mix(P, NMET), st)
+    params, mets = _common.population(n, shipped_mix(P, NMET),
+                                      st.generator, st.dtype)
     seeds = torch.randint(0, 2**31 - 1, (n,), generator=st.generator,
                           device=st.device)
-    state = _common.previous_state(keep, P, st)
+    state = _common.previous_state(keep, P, st.generator, st.dtype)
     raw = _common.unit_box_config(n, keep, [0.0] * NMET, npar=P)
     for prec in ("highest", "high"):
-        gen = _common.generation(raw, sim, st, weight_precision=prec)
+        gen = _common.generation(raw, sim, [st.device], st.dtype,
+                                 weight_precision=prec)
         g = st.generator
         for what, fn in (
             ("sim excluded", lambda: gen.step_precomputed(

@@ -48,7 +48,7 @@ def main(argv=None) -> int:
                         device=st.device, dtype=st.dtype)[0]
     gen = _common.generation(
         _common.unit_box_config(n, keep, obs, npar=NPAR, sets=args.sets),
-        sim, st, mesh=mesh)
+        sim, [st.device], st.dtype, mesh=mesh)
     g = st.generator
     params, seeds = gen.init_population(g, n)
     state = None

@@ -7,8 +7,9 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
 
 1. build   - compile csrc/mixture_logsumexp.cu with nvcc (sm_90a), timed;
 2. kernel  - the kernel against its plain PyTorch version on the card, f32,
-             at 2,048 x 2,048 x 16, 50,000 x 50,000 x 6 and 52,429 x 52,429
-             x 2 (the large main paths' shapes, all timed), at every shape
+             at 2,048 x 2,048 x 16, 10,000^2 x 6, 50,000 x 50,000 x 6 and
+             52,429 x 52,429 x 2 (the large main paths' shapes, all timed),
+             at every shape phase 15 gives it, at every shape
              the shipped examples of phase 7 give it (survivors of set t x
              survivors of set t - 1 x parameters, read from their configs:
              128-410 rows, p = 2-4, none a multiple of a tile), at every
@@ -134,6 +135,20 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
              the JAX tool's sizes in float32 (its own bounds); SBC with 10
              replicates of each configuration at n = 1,024; the native
              pool with 500 jobs. A harness's failed check ends the run.
+15. bench   - the JAX repo's last entry points as ported, in process:
+             ``abcsmc_tpu_torch.bench`` at 1,000,000 x 6 x 13, keep 50,000,
+             on one card, both routes (one JSON line each, ncomp_used > 1;
+             the replay held bit-equal to eager first); ``bench_extra``
+             at the JAX sizes (PLS fit, the kernel at 10,000^2, 50,000^2
+             and 200,000^2 x 6, the 1M resample, the step at 100,000 and 1M
+             with and without the simulator); ``graft_entry.entry()``'s fn;
+             ``dryrun_multichip(4)`` on a 4-shard mesh of the card (its
+             3-set chain replayed from a CUDA graph, the two-process gloo
+             engine run included); ``tools.scaling_analysis`` at 1,048,576
+             rows on 1, 2, 4 and 8 shards and 4,194,304 on 8 (reduction
+             payloads equal within a top-K strategy, and across all rows
+             with the single-stage top-K forced). Every kernel launch of
+             the phase is at a shape phase 2 held (checked at launch).
 
 ``python3 chip_smoke.py --only fused,surfaces`` runs the build, the named
 phases (dengue too where surfaces is named) and the closing lines alone.
@@ -162,7 +177,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 TOL = 2e-4          # nats; the bound of tests/test_pallas_kernels.py
-KERNEL_SHAPES = ((2048, 2048, 16), (50_000, 50_000, 6), (52_429, 52_429, 2))
+KERNEL_SHAPES = ((2048, 2048, 16), (10_000, 10_000, 6), (50_000, 50_000, 6),
+                 (52_429, 52_429, 2))
 REPORT_SHAPE = (50_000, 50_000, 6)    # the kernels line's ms / bound_ms
 SMOKE_DIR = REPO / "build" / "smoke"  # the example phases' stores
 SIR_1M = (1_048_576, 52_429)          # particles, survivors (5 %) of sir_1m
@@ -263,6 +279,7 @@ def phase_kernel():
     errs, times = {}, {}
     for n, m, p in KERNEL_SHAPES:
         a, b, lw = kernel_inputs(n, m, p, seed=n + p)
+        HELD.add((n, m, p))
         for mode in ("static", "online", "auto"):
             got = mixture_logsumexp(a, b, lw, mode=mode)
             torch.cuda.synchronize()
@@ -288,7 +305,9 @@ def phase_kernel():
     example_shapes = example_kernel_shapes()
     check(example_shapes, "no example shapes")
     mesh_shapes = sorted(set().union(*map(mesh_kernel_shapes, MESH_RUNS)))
-    for n, m, p in (*example_shapes, *mesh_shapes, *EXTRA_SHAPES):
+    bench_shapes = bench_kernel_shapes()
+    for n, m, p in (*example_shapes, *mesh_shapes, *bench_shapes,
+                    *EXTRA_SHAPES):
         a, b, lw = kernel_inputs(n, m, p, seed=n + m + p)
         for mode in ("static", "online", "auto"):
             got = mixture_logsumexp(a, b, lw, mode=mode)
@@ -359,7 +378,8 @@ def phase_kernel():
     check(ierr <= TOL, f"-inf weights: max abs err {ierr}")
     errs["neg_inf_weights"] = ierr
     emit({"phase": "kernel", "max_abs_err": errs, "times": times,
-          "example_shapes": example_shapes, "mesh_shapes": mesh_shapes})
+          "example_shapes": example_shapes, "mesh_shapes": mesh_shapes,
+          "bench_shapes": bench_shapes})
     return errs, times
 
 
@@ -2005,6 +2025,170 @@ def phase_study():
     return launches, errs
 
 
+# --------------------------------------------------------------------------- #
+# bench: the JAX repo's last entry points, ported
+# --------------------------------------------------------------------------- #
+
+BENCH_EXTRA_K = (10_000, 50_000, 200_000)     # bench_extra's kernel lines
+BENCH_EXTRA_GEN = (100_000, 1_000_000)        # its generations, keep n / 20
+DRYRUN_SHARDS = 4
+SCALING_ARGV = ["--n", "1048576", "--shards", "1,2,4,8",
+                "--n-sweep", "4194304"]
+SCALING_SHARDS = (1, 2, 4, 8)
+SCALING_KEEP = 50_000
+
+
+def bench_kernel_shapes():
+    """Every (n, m, p) the ``bench`` phase gives the kernel: the north-star
+    step's keep^2 x 6; bench_extra's kernel lines and its generations'
+    (n / 20)^2 x 6; each dry-run case's weighted generation, ceil(keep /
+    shards) x keep x 2 (the fused chain and the resume: 2 x 8 x 2); the
+    scaling tool's per-shard ceil(50,000 / shards) x 50,000 x 6."""
+    from abcsmc_tpu_torch import bench
+    from abcsmc_tpu_torch.graft_entry import dryrun_cases
+
+    k = DRYRUN_SHARDS
+    shapes = {(bench.KEEP, bench.KEEP, bench.NPAR)}
+    shapes |= {(x, x, 6) for x in BENCH_EXTRA_K}
+    shapes |= {(x // 20, x // 20, 6) for x in BENCH_EXTRA_GEN}
+    shapes |= {(-(-keep // k), keep, 2) for _, _, keep, _ in dryrun_cases(k)}
+    shapes.add((2, 8, 2))
+    shapes |= {(-(-SCALING_KEEP // s), SCALING_KEEP, 6)
+               for s in SCALING_SHARDS}
+    return sorted(shapes)
+
+
+class held_shapes_only:
+    """Within it every kernel launch must be at a shape the kernel phase
+    held against plain (else the launch raises, before it runs); records
+    the shapes launched."""
+
+    def __enter__(self):
+        from abcsmc_tpu_torch.ops import kernels
+
+        self.kernels, self.orig, self.seen = kernels, kernels._launch, set()
+
+        def launch(a, b, log_w, mode, **kw):
+            shape = (a.shape[0], b.shape[0], a.shape[1])
+            check(shape in HELD, f"bench: kernel shape {shape} was not "
+                  "held against plain in the kernel phase")
+            self.seen.add(shape)
+            return self.orig(a, b, log_w, mode, **kw)
+
+        kernels._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.kernels._launch = self.orig
+        return False
+
+
+def run_main(main_fn, argv):
+    """``main_fn(argv)`` in process: (its JSON lines, the other stdout
+    lines); exit 0 required."""
+    buf = io.StringIO()
+    with redirect_stdout(buf), redirect_stderr(io.StringIO()):
+        rc = main_fn(argv)
+    check(rc == 0, f"{main_fn.__module__} {argv}: exit {rc}")
+    lines = buf.getvalue().splitlines()
+    return ([json.loads(x) for x in lines if x.startswith("{")],
+            [x for x in lines if not x.startswith("{")])
+
+
+def scaling_checks(rows, label):
+    """The scaling contract on the tool's rows: reduction payloads equal
+    across shard counts and N among rows of one top-K strategy, the
+    gather payload fixed in N, FLOPs over all shards within 2 %."""
+    def red(r):
+        return sum(r["collectives"].get(k, {"bytes": 0})["bytes"]
+                   for k in ("psum", "pmin"))
+
+    for two in (False, True):
+        same = {red(r) for r in rows if r["topk_two_stage"] == two}
+        check(len(same) <= 1, f"{label}: reduction payloads {same}")
+    by = {(r["shards"], r["n"]): r for r in rows}
+    big = max(r["n"] for r in rows)
+    g8 = by[(8, 1 << 20)]["collectives"]["all_gather"]["bytes"]
+    check(g8 == by[(8, big)]["collectives"]["all_gather"]["bytes"],
+          f"{label}: the gather payload grew with N")
+    f1, f8 = by[(1, 1 << 20)]["flops_total"], by[(8, 1 << 20)]["flops_total"]
+    check(abs(f8 - f1) / f1 < 0.02, f"{label}: flops {f1} vs {f8}")
+
+
+def phase_bench():
+    """The north-star bench on both routes at 1M, bench_extra at the JAX
+    sizes, entry()'s fn, dryrun_multichip(4) on the card's virtual mesh
+    and the scaling counts, in process."""
+    import torch
+
+    from abcsmc_tpu_torch import bench, bench_extra, graft_entry
+    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
+    from abcsmc_tpu_torch.tools import scaling_analysis
+
+    t_phase = time.perf_counter()
+    mixture_logsumexp.launches = 0
+    seconds, out = {}, {}
+    with held_shapes_only() as held:
+        for route in ("eager", "replay"):
+            t0 = time.perf_counter()
+            rows, _ = run_main(bench.main, ["--route", route, "--shards",
+                                            "1"])
+            seconds[f"bench_{route}"] = time.perf_counter() - t0
+            check(len(rows) == 1, f"bench {route}: {len(rows)} lines")
+            row = out[f"bench_{route}"] = rows[0]
+            check(row["route"] == route and row["ncomp_used"] > 1
+                  and row["vs_baseline"] is None and row["value"] > 0,
+                  f"bench {route}: {row}")
+            check(row["device"] not in ("", "cpu"), f"bench device {row}")
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        rows, _ = run_main(bench_extra.main, [])
+        seconds["bench_extra"] = time.perf_counter() - t0
+        check(len(rows) == 1 + len(BENCH_EXTRA_K) + 1
+              + 2 * len(BENCH_EXTRA_GEN), f"bench_extra: {len(rows)} lines")
+        check(all(r["value"] > 0 for r in rows), "bench_extra times")
+        out["bench_extra"] = rows
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        fn, args = graft_entry.entry("cuda")
+        surv, w, nxt = fn(*args)
+        torch.cuda.synchronize()
+        check(tuple(surv.shape) == (128, 2) and tuple(w.shape) == (128,)
+              and tuple(nxt.shape) == (1024, 2)
+              and bool(torch.isfinite(nxt).all()), "entry fn outputs")
+        buf = io.StringIO()
+        with redirect_stdout(buf), redirect_stderr(io.StringIO()):
+            lines = graft_entry.dryrun_multichip(DRYRUN_SHARDS)
+        check(len(lines) == len(graft_entry.dryrun_cases(DRYRUN_SHARDS)) + 4,
+              f"dryrun lines {lines}")
+        if torch.cuda.device_count() < DRYRUN_SHARDS:     # one card's mesh
+            check(not any("(0 CUDA-graph replays)" in x for x in lines),
+                  "dryrun run_scan did not replay on the card")
+        out["dryrun"] = buf.getvalue().splitlines()
+        seconds["entry_dryrun"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        rows, table = run_main(scaling_analysis.main, SCALING_ARGV)
+        scaling_checks(rows, "scaling auto")
+        single, _ = run_main(scaling_analysis.main,
+                             SCALING_ARGV + ["--topk", "single"])
+        scaling_checks(single, "scaling single")
+        check(len({r["collectives"]["psum"]["bytes"] for r in single}) == 1,
+              "single-stage reduction payloads differ")
+        out["scaling"] = rows
+        out["scaling_table"] = [x for x in table if x.startswith("|")]
+        out["scaling_single_stage"] = single
+        seconds["scaling"] = time.perf_counter() - t0
+    launches = mixture_logsumexp.launches
+    check(launches > 0, "bench phase launched no kernel")
+    emit({"phase": "bench", **out, "launches": launches,
+          "kernel_shapes": sorted(held.seen), "seconds": seconds,
+          "wall_s": time.perf_counter() - t_phase})
+    return launches, {}
+
+
 def main() -> int:
     if not (REPO / "abcsmc_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -2055,7 +2239,7 @@ def main() -> int:
             launches += phase()
     for name, phase in (("hbm_scale", phase_hbm_scale),
                         ("fused", phase_fused), ("mesh", phase_mesh),
-                        ("study", phase_study)):
+                        ("study", phase_study), ("bench", phase_bench)):
         if wanted(name):
             more, more_errs = phase()
             launches += more
@@ -2085,6 +2269,12 @@ def main() -> int:
         "ms_static": times[big]["ms_static"],
         "ms_online": times[big]["ms_online"],
         "bound_terms_ms": bound["terms_ms"],
+        "by_shape": {
+            key: {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                  **{k: v for k, v in kernel_bound_ms(
+                      *map(int, key.split("x"))).items()
+                     if k in ("bound_ms", "bound_by")}}
+            for key, t in times.items()},
         "p2": {"shape": [n2, m2, p2], "ms": times[small_p]["ms"],
                "plain_ms": times[small_p]["plain_ms"],
                "ms_static": times[small_p]["ms_static"],

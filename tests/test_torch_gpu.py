@@ -849,3 +849,85 @@ def test_study_harness_on_the_card(cuda, tool, tmp_path):
             assert row["value"] > 0, row
         if "ms" in row:
             assert row["ms"] > 0, row
+
+
+def _json_lines(text):
+    import json
+
+    return [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+
+
+@pytest.mark.parametrize("route", ["eager", "replay"])
+def test_bench_on_the_card(cuda, route, capsys):
+    """The north-star bench at a mid size: one line, ncomp_used > 1; the
+    replay route holds its first replay bit-equal to the eager step on the
+    same draws before it times (a difference raises)."""
+    from abcsmc_tpu_torch import bench
+
+    assert bench.main(["--route", route, "--n", "200000", "--keep",
+                       "10000"]) == 0
+    (row,) = _json_lines(capsys.readouterr().out)
+    assert row["route"] == route and row["ncomp_used"] > 1
+    assert row["value"] > 0 and row["device"] != "cpu"
+    assert row["vs_baseline"] is None
+
+
+def test_bench_replay_result_bit_equal_to_eager(cuda):
+    """capture_precomputed / replay_precomputed against the eager step on
+    the same draws, field by field, and again on new draws."""
+    from abcsmc_tpu_torch import bench
+    from abcsmc_tpu_torch.tools import _common
+
+    n, keep = 200_000, 10_000
+    gen = _common.generation(
+        _common.unit_box_config(n, keep, [0.0] * bench.NMET,
+                                npar=bench.NPAR), None, [cuda])
+    params, mets, state = (torch.from_numpy(x).to(cuda) if i < 2 else
+                           tuple(torch.from_numpy(s).to(cuda) for s in x)
+                           for i, x in enumerate(bench.make_data(n, keep)))
+    g = _common.step_generator(gen)
+    d0 = gen.draw_step(g, n)
+    eager0 = gen.step_precomputed(params, mets, keep, n, d0, state)
+    cap = gen.capture_precomputed(params, mets, keep, n, d0, state)
+    assert bench.results_bit_equal(gen.replay_precomputed(cap, d0),
+                                   eager0) == []
+    d1 = gen.draw_step(g, n)
+    eager1 = gen.step_precomputed(params, mets, keep, n, d1, state)
+    assert bench.results_bit_equal(gen.replay_precomputed(cap, d1),
+                                   eager1) == []
+    assert gen.graph_captures == 1 and gen.graph_replays == 2
+
+
+def test_bench_extra_on_the_card(cuda, capsys):
+    from abcsmc_tpu_torch import bench_extra
+
+    kernels.mixture_logsumexp.launches = 0
+    assert bench_extra.main(["--kernel-k", "3000", "--gen-n", "20000"]) == 0
+    rows = _json_lines(capsys.readouterr().out)
+    assert len(rows) == 5
+    assert rows[1]["metric"] == "mixture-weight kernel (CUDA) 3000x3000"
+    assert all(r["value"] > 0 for r in rows)
+    assert kernels.mixture_logsumexp.launches > 0
+
+
+def test_entry_and_dryrun_on_the_card(cuda, capsys):
+    from abcsmc_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry("cuda")
+    surv, w, nxt = fn(*args)
+    assert tuple(surv.shape) == (128, 2) and tuple(nxt.shape) == (1024, 2)
+    assert surv.is_cuda and bool(torch.isfinite(w).all())
+    lines = graft_entry.dryrun_multichip(2)
+    assert "all variants" in capsys.readouterr().out.splitlines()[-1]
+    assert any("CUDA-graph replays" in x and "(0 " not in x for x in lines)
+
+
+def test_scaling_counts_on_cuda_equal_cpu(cuda):
+    from abcsmc_tpu_torch.tools import scaling_analysis
+
+    for k in (1, 4):
+        on_card = scaling_analysis.analyze(k, 4096, 256, device="cuda")
+        on_cpu = scaling_analysis.analyze(k, 4096, 256, device="cpu")
+        for key in ("collectives", "flops_total", "weight_stage_flops",
+                    "topk_two_stage"):
+            assert on_card[key] == on_cpu[key], key
