@@ -55,10 +55,11 @@ NMET = 13
 REPS = 5
 
 
-def make_data(n: int = N, keep: int = KEEP):
+def make_data(n: int = N, keep: int = KEEP, rng=None):
     """(params [n, 6], metrics [n, 13], previous state) as float32 numpy,
-    drawn as the JAX bench draws them."""
-    rng = np.random.default_rng(0)
+    drawn as the JAX bench draws them, from ``rng`` (default
+    ``np.random.default_rng(0)``, the bench's)."""
+    rng = np.random.default_rng(0) if rng is None else rng
     params = rng.uniform(0, 1, size=(n, NPAR)).astype(np.float32)
     # metrics correlated with params so PLS has structure to find
     mix = rng.normal(size=(NPAR, NMET)).astype(np.float32)

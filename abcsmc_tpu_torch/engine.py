@@ -877,12 +877,13 @@ class AbcSmc:
         route = ("scan" if use_scan else "chain" if fused_ok
                  else "sequential")
         if verbose and fused_ok:
+            blocker = gen.capture_blocker()
             sys.stderr.write(
                 f"run_device: fused dispatch ({route}): "
                 + ("same-shape sets replay one CUDA graph of the step\n"
-                   if gen.capturable else
-                   "the step is not capturable (no CUDA device), running "
-                   "the eager chain\n"))
+                   if blocker is None else
+                   f"the step is not capturable ({blocker}), running the "
+                   "eager chain\n"))
 
         t_dispatch0 = time.perf_counter()
         pending_serials = None

@@ -9,6 +9,8 @@ to a metrics matrix through ``run_batch``:
   device and in any batch. The hash differs from JAX's threefry keys: a
   particle's metrics agree with the JAX package's in law, not draw for
   draw. ``run_batch`` runs ``fn`` on the device and dtype the caller names.
+  :class:`HostBridgeSimulator` is a device simulator whose batched ``fn``
+  is host numpy code: the step copies its rows to the host and back.
 - :class:`PySimulator`, :class:`ExecSimulator` and
   :class:`SharedLibSimulator` are host code, one particle at a time (a
   Python callable, an external executable, a shared object with the C ABI
@@ -65,6 +67,9 @@ class DeviceSimulator(Simulator):
     -> metrics[N, M]`` in params' dtype and on params' device."""
 
     is_device = True
+    #: True when ``batch_fn`` can be recorded into a CUDA graph (no host
+    #: round trip); ``Generation.capturable`` reads it
+    capturable = True
 
     def __init__(self, fn: Callable, nmet: int | None = None):
         self.fn = fn
@@ -82,6 +87,77 @@ class DeviceSimulator(Simulator):
         p = torch.as_tensor(np.asarray(params, np.float64)).to(device, dtype)
         s = torch.as_tensor(np.asarray(seeds).astype(np.int64)).to(device)
         return self.fn(p, s).to("cpu", torch.float64).numpy()
+
+
+class HostBridgeSimulator(DeviceSimulator):
+    """A batched host simulator inside the device step (port of
+    :class:`abcsmc_tpu.models.simulators.HostBridgeSimulator`):
+    ``fn(params[n, P] ndarray, seeds[n] ndarray) -> metrics[n, M]``, for
+    legacy numpy or Python simulators that anything exposing params ->
+    metrics can wrap. It is a :class:`DeviceSimulator`, so ``run_device``
+    runs the whole step on the device (ranking, weights through the
+    kernel, proposal) and only the simulate stage makes a round trip to
+    the host: :meth:`batch_fn` copies a shard's rows (or a ``row_block``
+    block's) to the host, calls ``fn`` and returns its metrics on the
+    rows' device in their dtype.
+
+    ``fn`` sees what the JAX package's ``io_callback`` hands it: params in
+    the step's float dtype and seeds as ``uint32`` (the step's seeds are
+    int64 in [0, 2^31 - 1), so the cast is lossless). :meth:`run_batch`
+    (the host engine: ``run()``, the CLI's ``--simulate``) calls it in
+    float64, with the seeds as given, as the JAX ``run_batch`` does.
+
+    A step whose simulator makes a host round trip is never captured into
+    a CUDA graph (``capturable`` is False): a device-to-host copy inside
+    stream capture is an error, so bridged sets run eagerly on every
+    route. The JAX package's ``backend_supports_callbacks`` probe and its
+    fallback to the host engine have no counterpart: a CUDA device (and
+    the CPU) can always make the round trip.
+
+    On a particle mesh each process calls ``fn`` for its own shards only,
+    and the metrics are gathered in shard order, so a side-effecting
+    ``fn`` runs exactly once per row fleet-wide. ``fn`` must be available
+    and deterministic per (params, seed) on every process. Rows are padded
+    up to a multiple of the shard count with copies of the last row (as in
+    the JAX package), and those copies reach ``fn`` too: "once per
+    particle" holds where the rows divide by the shards."""
+
+    capturable = False
+
+    def __init__(self, fn: Callable, nmet: int):
+        self.host_fn = fn
+        self.nmet = nmet
+
+    def batch_fn(self, params, seeds):
+        n, dev = params.shape[0], params.device
+        if dev.type == "cuda":
+            # pinned staging: the cached host allocator hands each call its
+            # own block, so an array ``fn`` keeps stays valid
+            p_host = torch.empty(params.shape, dtype=params.dtype,
+                                 pin_memory=True)
+            s_host = torch.empty((n,), dtype=torch.int32, pin_memory=True)
+            p_host.copy_(params)
+            s_host.copy_(seeds.to(torch.int32))
+        else:
+            p_host = params.detach().clone()
+            s_host = seeds.to(torch.int32)
+        p_np = p_host.numpy()
+        mets = np.asarray(self.host_fn(p_np, s_host.numpy().view(np.uint32)))
+        if mets.shape != (n, self.nmet):
+            raise SimulatorError(
+                f"host simulator returned metrics of shape {mets.shape}, "
+                f"expected ({n}, {self.nmet})"
+            )
+        out = torch.from_numpy(np.ascontiguousarray(mets, p_np.dtype))
+        if dev.type == "cuda":
+            out = out.pin_memory().to(dev, non_blocking=True)
+        return out
+
+    def run_batch(self, params, seeds, serials, *, device=None, dtype=None):
+        return np.asarray(
+            self.host_fn(np.asarray(params, np.float64), np.asarray(seeds)),
+            np.float64,
+        )
 
 
 class PySimulator(Simulator):

@@ -533,13 +533,29 @@ class Generation:
         return (max(self.mesh.padded(n), self.mesh.padded(n_next)) // k
                 >= self.split_threshold)
 
+    def capture_blocker(self, with_simulator: bool = True) -> str | None:
+        """Why a later-set step cannot be captured into a CUDA graph, or
+        None when it can: it needs a CUDA device with every shard of a
+        one-process mesh on it (the step has no host sync of its own; a
+        MULTIVARIATE step's count is read after the replay) and, where the
+        step simulates (``with_simulator``), a simulator without a host
+        round trip (``DeviceSimulator.capturable``; a
+        :class:`~abcsmc_tpu_torch.models.simulators.HostBridgeSimulator`
+        has one). Such steps run eagerly."""
+        if self.device.type != "cuda":
+            return "no CUDA device"
+        if not self.mesh.one_device:
+            return "a mesh across devices or processes"
+        if with_simulator and not getattr(self.simulator, "capturable",
+                                          True):
+            return "the simulator makes a host round trip"
+        return None
+
     @property
     def capturable(self) -> bool:
-        """True when a later-set step can be captured into a CUDA graph: on
-        a CUDA device, every shard of a one-process mesh on it (the step
-        has no host sync of its own; a MULTIVARIATE step's count is read
-        after the replay). Across devices or processes sets run eagerly."""
-        return self.device.type == "cuda" and self.mesh.one_device
+        """True when a later-set step, its simulate stage included, can be
+        captured into a CUDA graph (:meth:`capture_blocker`)."""
+        return self.capture_blocker() is None
 
     # ------------------------------------------------------- shard lists
     def _in(self, x):
@@ -1627,7 +1643,8 @@ class Generation:
         The step first runs once eagerly on a side stream (the kernel built
         and every cached constant made, so the capture meets no first-use
         work). :meth:`replay_precomputed` then runs it on new draws."""
-        if not self.capturable:
+        # the simulator is not part of this step: it cannot block it
+        if self.capture_blocker(with_simulator=False) is not None:
             raise ValueError(
                 "capture_precomputed needs a capturable step (a CUDA device, "
                 "every shard of a one-process mesh on it)")

@@ -15,9 +15,14 @@ and ports one JAX file (that file stays the JAX side's):
 | ``calibration_study`` | ``tools/calibration_study.py`` |
 | ``million_run`` | ``examples/million_run.py`` |
 | ``bench_native`` | ``tools/bench_native.py`` |
+| ``scaling_analysis`` | ``tools/scaling_analysis.py`` |
+| ``validate`` | ``tools/tpu_validate.py`` |
+| ``gen_dengue_surrogate`` | ``examples/gen_dengue_surrogate.py`` |
 
 Common to all (:mod:`abcsmc_tpu_torch.tools._common`): ``--device``
 (default ``cuda``; without CUDA and without ``--device cpu`` the harness
 exits 2), ``--seed``, ``--out`` (a copy of the JSON lines); the first
 line names the card. They write nothing else: no file under ``docs/``.
+``gen_dengue_surrogate`` takes ``--device`` alone, under the same rule,
+and writes a config to stdout, as its JAX script does.
 """

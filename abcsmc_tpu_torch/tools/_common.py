@@ -30,17 +30,23 @@ DTYPES = {"float32": torch.float32, "float64": torch.float64}
 def parser(doc: str, dtype: bool = False) -> argparse.ArgumentParser:
     """An argument parser with the common flags (``--dtype`` where the
     harness runs the engine or the step)."""
-    ap = argparse.ArgumentParser(
-        description=doc.split("\n\n")[0],
-        formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (default), cuda:N or cpu; no fallback")
+    ap = device_parser(doc)
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the harness's torch.Generator")
     ap.add_argument("--out", help="also write the JSON lines to this file")
     if dtype:
         ap.add_argument("--dtype", choices=sorted(DTYPES),
                         default="float32")
+    return ap
+
+
+def device_parser(doc: str) -> argparse.ArgumentParser:
+    """An argument parser with ``--device`` alone (default ``cuda``)."""
+    ap = argparse.ArgumentParser(
+        description=doc.split("\n\n")[0],
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default), cuda:N or cpu; no fallback")
     return ap
 
 

@@ -9,7 +9,7 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
 2. kernel  - the kernel against its plain PyTorch version on the card, f32,
              at 2,048 x 2,048 x 16, 10,000^2 x 6, 50,000 x 50,000 x 6 and
              52,429 x 52,429 x 2 (the large main paths' shapes, all timed),
-             at every shape phase 15 gives it, at every shape
+             at every shape phases 15 and 16 give it, at every shape
              the shipped examples of phase 7 give it (survivors of set t x
              survivors of set t - 1 x parameters, read from their configs:
              128-410 rows, p = 2-4, none a multiple of a tile), at every
@@ -149,9 +149,29 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
              payloads equal within a top-K strategy, and across all rows
              with the single-stage top-K forced). Every kernel launch of
              the phase is at a shape phase 2 held (checked at launch).
+16. bridge  - a black-box host simulator inside run_device's step:
+             dengue_surrogate at its shipped widths (102,400 x 16 x 100,
+             keep 2,048), 3 sets, SQLite, its simulator a numpy
+             linear-Gaussian (the shipped mixing matrix, 0.3-sd normals
+             from a numpy counter hash of (seed, column)) behind
+             HostBridgeSimulator: every set eager, no graph captured,
+             ncomp_used > 1, posterior closer to the truth than the
+             prior, per set ms and the host round trip (simulate_ms), the
+             run wall beside host_cli's where this call ran it, the kernel
+             at each set's shape against plain; the same run under
+             device_dispatch "fused" (0 captures, stored rows bit-equal);
+             the dice game bridged on a 4-shard mesh of the card, 96 rows
+             x 3 sets, its host function's journal equal to the stored
+             rows as multisets, one call per shard and set;
+             ``tools.validate`` in process at the JAX tool's sizes (the
+             kernel at four shapes against plain, the 1M step, chunked
+             against resident; its launches, mostly comparisons and
+             timings, are printed apart and not counted).
 
 ``python3 chip_smoke.py --only fused,surfaces`` runs the build, the named
-phases (dengue too where surfaces is named) and the closing lines alone.
+phases (dengue too where surfaces is named) and the closing lines alone;
+``--only host_cli,bridge`` puts the bridged wall beside the host engine's
+of the same call.
 
 Each phase prints its wall time; the host phases also print the engine's
 timings split (read/rank/weight, propose, enqueue, claim, simulate,
@@ -307,7 +327,7 @@ def phase_kernel():
     mesh_shapes = sorted(set().union(*map(mesh_kernel_shapes, MESH_RUNS)))
     bench_shapes = bench_kernel_shapes()
     for n, m, p in (*example_shapes, *mesh_shapes, *bench_shapes,
-                    *EXTRA_SHAPES):
+                    *bridge_kernel_shapes(), *EXTRA_SHAPES):
         a, b, lw = kernel_inputs(n, m, p, seed=n + m + p)
         for mode in ("static", "online", "auto"):
             got = mixture_logsumexp(a, b, lw, mode=mode)
@@ -379,7 +399,8 @@ def phase_kernel():
     errs["neg_inf_weights"] = ierr
     emit({"phase": "kernel", "max_abs_err": errs, "times": times,
           "example_shapes": example_shapes, "mesh_shapes": mesh_shapes,
-          "bench_shapes": bench_shapes})
+          "bench_shapes": bench_shapes,
+          "bridge_shapes": bridge_kernel_shapes()})
     return errs, times
 
 
@@ -607,7 +628,7 @@ def phase_host_cli():
           "per_set": [e for e in timings if e["op"] != "rank"],
           "log_weight_spread_nats": spread, "rmse_posterior": rmse_post,
           "rmse_prior": rmse_prior})
-    return launches
+    return launches, wall
 
 
 def phase_resume():
@@ -2189,6 +2210,266 @@ def phase_bench():
     return launches, {}
 
 
+# --------------------------------------------------------------------------- #
+# bridge: a black-box numpy simulator inside run_device's step
+# --------------------------------------------------------------------------- #
+
+BRIDGE_SETS = 3          # dengue_surrogate's sets cut, its widths as shipped
+BRIDGE_NOISE_SD = 0.3    # the linear_gaussian builtin's noise
+BRIDGE_MESH = (4, 96, 3)  # the dice fit: shards of the card, rows, sets
+BRIDGE_DICE_KEEP = 24
+
+
+def bridge_kernel_shapes():
+    """Every (n, m, p) the bridged fits give the kernel: dengue's keep^2 x
+    16, and the mesh dice fit's per-shard ceil(keep / shards) x keep x 2."""
+    k = BRIDGE_MESH[0]
+    return sorted({(2048, 2048, 16),
+                   (-(-BRIDGE_DICE_KEEP // k), BRIDGE_DICE_KEEP, 2)})
+
+
+_MIX64 = (0xBF58476D1CE4E5B9, 0x94D049BB133111EB)
+
+
+def numpy_counter_normals(seeds, ncols):
+    """float32 standard normals [n, ncols], a function of (seed, column)
+    alone: splitmix64's finaliser of seed << 32 | column gives two 24-bit
+    uniforms, then Box-Muller. Vectorised numpy, no loop over rows."""
+    import numpy as np
+
+    h = np.asarray(seeds).astype(np.uint64)[:, None] << np.uint64(32)
+    h = h | np.arange(ncols, dtype=np.uint64)[None, :]
+    h ^= h >> np.uint64(30)
+    h *= np.uint64(_MIX64[0])
+    h ^= h >> np.uint64(27)
+    h *= np.uint64(_MIX64[1])
+    h ^= h >> np.uint64(31)
+    scale = np.float32(2.0 ** -24)
+    u1 = ((h >> np.uint64(40)).astype(np.float32) + np.float32(0.5)) * scale
+    u2 = (h & np.uint64(0xFFFFFF)).astype(np.float32) * scale
+    return (np.sqrt(np.float32(-2.0) * np.log(u1))
+            * np.cos(np.float32(2.0 * math.pi) * u2))
+
+
+def numpy_linear_gaussian(mix):
+    """The black box of the bridged dengue fit: params @ mix +
+    BRIDGE_NOISE_SD N(0, 1) in numpy, the noise deterministic per (seed,
+    column)."""
+    def fn(params, seeds):
+        eps = numpy_counter_normals(seeds, mix.shape[1])
+        return (params @ mix.astype(params.dtype)
+                + (BRIDGE_NOISE_SD * eps).astype(params.dtype))
+
+    return fn
+
+
+def bridged_dengue(dispatch, db, seed=0):
+    """examples/dengue_surrogate.json at its widths, BRIDGE_SETS sets,
+    SQLite, through run_device with the numpy linear-Gaussian behind a
+    HostBridgeSimulator; returns (engine, wall s, kernel launches,
+    stderr)."""
+    from abcsmc_tpu_torch import AbcSmc
+    from abcsmc_tpu_torch.models.simulators import (
+        HostBridgeSimulator, shipped_mix,
+    )
+    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
+
+    cfg = json.loads((REPO / "examples" / "dengue_surrogate.json").read_text())
+    cfg.update(smc_iterations=BRIDGE_SETS, database_filename=db,
+               device_dispatch=dispatch)
+    sim = HostBridgeSimulator(numpy_linear_gaussian(shipped_mix(16, 100)),
+                              nmet=100)
+    mixture_logsumexp.launches = 0
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stderr(err):
+        run = AbcSmc(cfg, device="cuda", simulator=sim).run_device(
+            seed=seed, verbose=True)
+    wall = time.perf_counter() - t0
+    run.storage.close()
+    return run, wall, mixture_logsumexp.launches, err.getvalue()
+
+
+def run_kernel_shapes(run):
+    """The kernel against plain at each set's own inputs (set t's
+    survivors against set t - 1's state), from the run's host copies of
+    the float32 values the step computed with."""
+    import torch
+
+    def dev(x):
+        return torch.as_tensor(x).to(run.device, run.dtype)
+
+    errs = {}
+    for t in range(1, len(run._predictive_prior)):
+        prev = run._particle_parameters[t - 1][run._predictive_prior[t - 1]]
+        state = (dev(prev), dev(run._weights[t - 1]),
+                 dev(run._doubled_variance[t - 1]))
+        surv = run._particle_parameters[t][run._predictive_prior[t]]
+        shape, err = kernel_vs_plain_sampled(dev(surv), state)
+        errs[f"bridge set {t} {shape}"] = err
+    return errs
+
+
+def bridge_mesh_dice():
+    """The dice game behind a HostBridgeSimulator on a 4-shard mesh of the
+    card, 96 rows a set, 3 sets: the host function journals every row it
+    simulates; the journal's union equals the stored rows as multisets and
+    every shard made its calls (one a set, in shard order, a quarter of
+    the rows each). Returns (the phase's numbers, kernel launches)."""
+    from collections import Counter
+
+    import numpy as np
+
+    from abcsmc_tpu_torch import AbcSmc
+    from abcsmc_tpu_torch.models.simulators import HostBridgeSimulator
+    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
+    from abcsmc_tpu_torch.parallel import particle_mesh
+
+    shards, n, sets = BRIDGE_MESH
+    journal = []
+
+    def dice_host(params, seeds):
+        out = np.empty((len(params), 2), params.dtype)
+        rows = []
+        for i in range(len(params)):
+            nd, sd = int(round(float(params[i, 0]))), int(
+                round(float(params[i, 1])))
+            rolls = np.random.default_rng(int(seeds[i])).integers(
+                1, sd + 1, size=nd)
+            out[i] = [rolls.sum(), rolls.std(ddof=0) if nd > 1 else 0.0]
+            rows.append((nd, sd, int(seeds[i])))
+        journal.append(rows)
+        return out
+
+    cfg = {
+        "smc_iterations": sets, "num_samples": n,
+        "predictive_prior_size": BRIDGE_DICE_KEEP, "database_filename": "",
+        "parameters": [
+            {"name": "ndice", "dist_type": "UNIFORM", "num_type": "INT",
+             "par1": 1, "par2": 60},
+            {"name": "sides", "dist_type": "UNIFORM", "num_type": "INT",
+             "par1": 1, "par2": 30}],
+        "metrics": [{"name": "sum", "num_type": "INT", "value": 44},
+                    {"name": "sd", "num_type": "FLOAT", "value": 2.39925}],
+    }
+    mesh = particle_mesh(["cuda:0"] * shards)
+    mixture_logsumexp.launches = 0
+    t0 = time.perf_counter()
+    with redirect_stderr(io.StringIO()):
+        run = AbcSmc(cfg, device="cuda", simulator=HostBridgeSimulator(
+            dice_host, nmet=2)).run_device(seed=19, mesh=mesh)
+    wall = time.perf_counter() - t0
+    launches = mixture_logsumexp.launches
+    gens = run.storage.read_generations()
+    stored = [(int(round(p[0])), int(round(p[1])), int(s))
+              for g in gens for p, s in zip(g.params, g.seeds)]
+    check(len(gens) == sets and len(stored) == n * sets,
+          f"bridge mesh: {len(gens)} sets, {len(stored)} rows")
+    check(Counter(r for call in journal for r in call) == Counter(stored),
+          "bridge mesh: the journal's rows are not the store's")
+    sizes = [len(call) for call in journal]
+    check(sizes == [n // shards] * (shards * sets),
+          f"bridge mesh: host calls of {sizes} rows")
+    # one auto call (2 launches) per shard in every set after set 0
+    check(launches == 2 * shards * (sets - 1),
+          f"bridge mesh: kernel launches {launches}")
+    return {"shards": shards, "rows_per_set": n, "sets": sets,
+            "host_calls": len(journal), "rows_per_call": sizes[0],
+            "journal_rows": sum(sizes), "store_rows": len(stored),
+            "wall_s": wall}, launches
+
+
+def phase_bridge(host_cli_wall=None):
+    """The host bridge: dengue_surrogate at full width with a numpy
+    simulator behind HostBridgeSimulator, sequential and fused; the dice
+    game bridged on a 4-shard mesh; tools.validate in process.
+    ``host_cli_wall`` is the host_cli phase's wall for HOST_SETS sets in
+    this run (None when it did not run), printed beside the bridged wall.
+    The phase returns the launches of the three bridged runs only:
+    validate's are mostly the kernel held against plain and timed at its
+    four shapes, so they are printed apart (``validate_launches``) and not
+    counted."""
+    import numpy as np
+    import torch
+
+    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
+    from abcsmc_tpu_torch.tools import validate
+
+    t_phase = time.perf_counter()
+    cfg = json.loads((REPO / "examples" / "dengue_surrogate.json").read_text())
+    truth = np.array(json.loads(
+        re.search(r"truth=(\[[^\]]*\])", cfg["comment"]).group(1)))
+    seq, wall, launches, said = bridged_dengue(
+        "sequential", fresh_store("bridge_dengue.sqlite"))
+    check("falling back" not in said, "bridge: the host engine ran")
+    n, keep = cfg["num_samples"], seq.config.pred_prior_size_at(0)
+    rows = store_rows(seq.storage.path)
+    check(rows == [(t, n, n, keep) for t in range(BRIDGE_SETS)],
+          f"bridge store rows {rows}")
+    rep = route_report(seq)
+    check(rep["routes"] == ["eager"] * BRIDGE_SETS
+          and rep["graph_captures"] == 0 and min(rep["ncomp"]) > 1,
+          f"bridge sequential: {rep}")
+    check(launches == 2 * (BRIDGE_SETS - 1),
+          f"bridge kernel launches {launches}")
+    gens = [e for e in seq.timings if e["op"] == "device_generation"]
+    sim_ms = [e["simulate_ms"] for e in gens]
+    check(all(ms is not None and ms > 0 for ms in sim_ms),
+          f"bridge simulate ms {sim_ms}")
+    rmse_post, rmse_prior = posterior_rmse(seq.posterior()[0], truth)
+    errs = run_kernel_shapes(seq)
+
+    fused, wall_fused, l_fused, said_fused = bridged_dengue(
+        "fused", fresh_store("bridge_dengue_fused.sqlite"))
+    frep = route_report(fused)
+    check(frep["route"] == "scan" and frep["graph_captures"] == 0
+          and frep["graph_replays"] == 0
+          and frep["routes"] == ["eager"] * BRIDGE_SETS,
+          f"bridge fused: {frep}")
+    check("the simulator makes a host round trip" in said_fused,
+          "bridge fused: the reason it runs eagerly was not said")
+    diff = stored_diff(seq, fused)
+    check(diff == 0.0, f"bridge: fused differs from sequential by {diff}")
+    check(l_fused == launches, f"bridge fused launches {l_fused}")
+    mesh_out, l_mesh = bridge_mesh_dice()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mixture_logsumexp.launches = 0
+    lines, _ = run_main(validate.main, [])
+    validate_s = time.perf_counter() - t0
+    validate_launches = mixture_logsumexp.launches
+    kern = [r for r in lines if r.get("metric", "").startswith("mixture")]
+    check(len(kern) == len(validate.SHAPES)
+          and max(r["max_abs_err"] for r in kern) <= TOL,
+          f"validate kernel lines {kern}")
+    check(lines[-2]["ncomp_used"] > 1
+          and lines[-1]["survivor_overlap"] > 0.999,
+          f"validate step lines {lines[-2:]}")
+    errs.update({f"validate {r['metric']}": r["max_abs_err"] for r in kern})
+    emit({"phase": "bridge", "example": "dengue_surrogate",
+          "sets": BRIDGE_SETS, "store_rows": rows, "ncomp": rep["ncomp"],
+          "routes": rep["routes"], "set_ms": rep["set_ms"],
+          "simulate_ms": sim_ms, "wall_s": wall,
+          "wall_s_per_set": wall / BRIDGE_SETS,
+          "host_cli_wall_s": host_cli_wall,
+          "host_cli_sets": HOST_SETS if host_cli_wall else None,
+          "host_cli_wall_s_per_set": (host_cli_wall / HOST_SETS
+                                      if host_cli_wall else None),
+          "dispatch_s": rep["dispatch_s"], "mirror_s": rep["mirror_s"],
+          "launches": launches, "kernel_max_abs_err": errs,
+          "rmse_posterior": rmse_post, "rmse_prior": rmse_prior,
+          "fused": {"wall_s": wall_fused, "set_ms": frep["set_ms"],
+                    "route": frep["route"],
+                    "graph_captures": frep["graph_captures"],
+                    "stored_max_abs_diff": diff, "launches": l_fused},
+          "mesh_dice": mesh_out, "mesh_launches": l_mesh})
+    emit({"phase": "bridge", "tool": "validate", "seconds": validate_s,
+          "validate_launches": validate_launches, "lines": lines[1:]})
+    emit({"phase": "bridge", "wall_s": time.perf_counter() - t_phase})
+    return launches + l_fused + l_mesh, errs
+
+
 def main() -> int:
     if not (REPO / "abcsmc_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -2230,8 +2511,13 @@ def main() -> int:
     if wanted("dengue") or wanted("surfaces"):
         dengue_launches, dengue_run = phase_dengue()
         launches += dengue_launches
-    for name, phase in (("north", phase_north), ("host_cli", phase_host_cli),
-                        ("resume", phase_resume),
+    if wanted("north"):
+        launches += phase_north()
+    host_cli_wall = None
+    if wanted("host_cli"):
+        more, host_cli_wall = phase_host_cli()
+        launches += more
+    for name, phase in (("resume", phase_resume),
                         ("examples", phase_examples),
                         ("sir_1m", phase_sir_1m),
                         ("projection", phase_projection)):
@@ -2239,7 +2525,8 @@ def main() -> int:
             launches += phase()
     for name, phase in (("hbm_scale", phase_hbm_scale),
                         ("fused", phase_fused), ("mesh", phase_mesh),
-                        ("study", phase_study), ("bench", phase_bench)):
+                        ("study", phase_study), ("bench", phase_bench),
+                        ("bridge", lambda: phase_bridge(host_cli_wall))):
         if wanted(name):
             more, more_errs = phase()
             launches += more

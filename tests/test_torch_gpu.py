@@ -828,6 +828,8 @@ SMALL_STUDY = {
     "calibration_study": ["--reps", "1", "--n", "256", "--configs",
                           "lg,ma2"],
     "bench_native": ["--jobs", "50", "--workers", "1", "2"],
+    "validate": ["--shapes", "10000x5000x6,20000x8000x13", "--n", "200000",
+                 "--keep", "10000", "--row-block", "65536", "--reps", "2"],
 }
 
 
@@ -849,6 +851,19 @@ def test_study_harness_on_the_card(cuda, tool, tmp_path):
             assert row["value"] > 0, row
         if "ms" in row:
             assert row["ms"] > 0, row
+
+
+def test_gen_dengue_surrogate_on_the_card_equals_cpu(cuda, capsys):
+    """The config computed on the card (its default device) is byte-equal
+    to the one computed on the CPU: float64 on both, values rounded to 6
+    digits."""
+    from abcsmc_tpu_torch.tools import gen_dengue_surrogate
+
+    assert gen_dengue_surrogate.main([]) == 0
+    card = capsys.readouterr().out
+    assert gen_dengue_surrogate.main(["--device", "cpu"]) == 0
+    assert capsys.readouterr().out == card
+    assert len(card) > 1000
 
 
 def _json_lines(text):
@@ -931,3 +946,112 @@ def test_scaling_counts_on_cuda_equal_cpu(cuda):
         for key in ("collectives", "flops_total", "weight_stage_flops",
                     "topk_two_stage"):
             assert on_card[key] == on_cpu[key], key
+
+
+# the same elementwise function twice, numpy for the bridge and torch for a
+# device simulator (IEEE multiplies and adds, one op at a time, and an
+# integer seed term), 6 parameters -> 13 metrics. No division: on CUDA
+# torch divides a float32 tensor by a scalar as a product with its
+# reciprocal, so the two would differ in the last bit.
+_BRIDGE_COEF = np.linspace(-1.5, 2.0, 13)
+_INV_997 = 1.0 / 997
+
+
+def _np_lin(params, seeds):
+    s = ((np.asarray(seeds).astype(np.int64) % 997).astype(params.dtype)
+         * params.dtype.type(_INV_997))
+    cols = params[:, np.arange(13) % 6]
+    return (cols * _BRIDGE_COEF.astype(params.dtype)
+            + (0.3 * s.astype(params.dtype))[:, None])
+
+
+def _torch_lin(params, seeds):
+    s = (seeds.to(torch.int64) % 997).to(params.dtype) * _INV_997
+    cols = params[:, torch.arange(13, device=params.device) % 6]
+    coef = torch.as_tensor(_BRIDGE_COEF).to(params)
+    return cols * coef + (0.3 * s)[:, None]
+
+
+def test_bridged_step_on_cuda_equals_device_simulator_step(cuda):
+    """The host bridge in a float32 step on the card against the same
+    function as a torch DeviceSimulator on the same draws: the same
+    metrics, survivors and ncomp_used; the bridge's step is not capturable
+    (its host round trip), the same step without the simulator is."""
+    from abcsmc_tpu_torch.models.simulators import (
+        DeviceSimulator, HostBridgeSimulator,
+    )
+
+    n, keep = 20_000, 1_000
+    raw, ps, tr, _, obs, *_ = _scale_problem(n, keep)
+    out, calls = {}, []
+
+    def host(params, seeds):
+        calls.append((params.dtype, seeds.dtype, len(params)))
+        return _np_lin(params, seeds)
+
+    for name, sim in (("bridge", HostBridgeSimulator(host, 13)),
+                      ("device", DeviceSimulator(_torch_lin, 13))):
+        gen = Generation(ps, tr, sim, obs, device=cuda)
+        g = torch.Generator(device=cuda).manual_seed(4)
+        params, seeds = gen.init_population(g, n)
+        res0 = gen.step(params, seeds, keep, n, gen.draw_step(g, n))
+        state = (res0.survivor_params, res0.weights, res0.doubled_variance)
+        res1 = gen.step(res0.next_params, res0.next_seeds, keep, n,
+                        gen.draw_step(g, n), state)
+        out[name] = (gen, res0, res1)
+    bgen, *bres = out["bridge"]
+    dgen, *dres = out["device"]
+    assert bgen.capture_blocker() == "the simulator makes a host round trip"
+    assert bgen.capture_blocker(with_simulator=False) is None
+    assert dgen.capturable and not bgen.capturable
+    assert calls == [(np.dtype(np.float32), np.dtype(np.uint32), n)] * 2
+    for b, d in zip(bres, dres):
+        assert b.metrics.device.type == "cuda"
+        assert torch.equal(b.metrics, d.metrics)
+        assert torch.equal(b.survivor_idx, d.survivor_idx)
+        assert int(b.ncomp_used) == int(d.ncomp_used) > 1
+        assert torch.equal(b.weights, d.weights)
+    # the step without its simulator still captures (bench --route replay)
+    from abcsmc_tpu_torch.bench import results_bit_equal
+
+    params1, mets1 = bres[0].next_params, bres[1].metrics
+    state = (bres[0].survivor_params, bres[0].weights,
+             bres[0].doubled_variance)
+    draws = bgen.draw_step(torch.Generator(device=cuda).manual_seed(5), n)
+    eager = bgen.step_precomputed(params1, mets1, keep, n, draws, state)
+    cap = bgen.capture_precomputed(params1, mets1, keep, n, draws, state)
+    assert results_bit_equal(bgen.replay_precomputed(cap, draws), eager) == []
+    assert bgen.graph_captures == 1
+
+
+def test_bridged_run_device_on_cuda_never_captures(cuda):
+    """run_device with the bridge on the card: the device path (not the
+    host engine), every set eager under "fused" too, no graph captured,
+    the kernel launched for every set after set 0, the stored rows equal
+    on both routes."""
+    from abcsmc_tpu_torch.models.simulators import HostBridgeSimulator
+
+    raw, *_ = _scale_problem(4096, 205)
+    raw.update(smc_iterations=5, database_filename="")
+    runs = {}
+    for dispatch in ("sequential", "fused"):
+        a = AbcSmc(dict(raw, device_dispatch=dispatch), device="cuda",
+                   simulator=HostBridgeSimulator(_np_lin, 13))
+        kernels.mixture_logsumexp.launches = 0
+        with redirect_stderr(io.StringIO()) as err:
+            a.run_device(seed=1, verbose=True)
+        assert kernels.mixture_logsumexp.launches == 8
+        assert "falling back" not in err.getvalue()
+        runs[dispatch] = a
+    seq, fused = runs["sequential"], runs["fused"]
+    ph = [e for e in fused.timings if e["op"] == "run_device_phases"][0]
+    assert (ph["route"], ph["graph_captures"], ph["graph_replays"]) == \
+        ("scan", 0, 0)
+    for x, y in zip(seq.storage.read_generations(),
+                    fused.storage.read_generations()):
+        np.testing.assert_array_equal(x.params, y.params)
+        np.testing.assert_array_equal(x.metrics, y.metrics)
+        np.testing.assert_array_equal(x.posterior_ranks, y.posterior_ranks)
+    gens = [e for e in fused.timings if e["op"] == "device_generation"]
+    assert [e["route"] for e in gens] == ["eager"] * 5
+    assert all(e["simulate_ms"] > 0 for e in gens)

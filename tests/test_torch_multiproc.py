@@ -11,7 +11,11 @@ gloo backend and CPU shards, workers spawned from this file with
 - an error raised on the store writer alone makes it re-raise and its peer
   raise a coded ``AbcError``, instead of waiting in the next collective;
 - the host fallback (a host-only simulator) on a shared store raises on
-  every process.
+  every process;
+- a ``HostBridgeSimulator`` on 2 processes x 4 shards runs its host
+  function exactly once per row fleet-wide: the processes' journals
+  together hold the store's rows, each process a share, and the store
+  equals the 1 x 8-shard run's row for row.
 
 Every process group has a 60 s timeout and every spawn a time limit, so a
 hang fails here instead of stalling the suite."""
@@ -23,6 +27,7 @@ import sqlite3
 import subprocess
 import sys
 import time
+from contextlib import closing
 from pathlib import Path
 
 import numpy as np
@@ -142,6 +147,39 @@ def _error_worker(rank, world, port, shards, outdir):
     _teardown(world)
 
 
+BRIDGE_N = 96           # rows a set: no padding on 8 shards
+
+
+def _bridge_worker(rank, world, port, shards, outdir):
+    """run_device with a bridged numpy dice game that journals every row
+    it simulates (its parameters and seed) into this process's own file
+    (the counterpart of tests/multihost_worker.py's ``engine_bridge``)."""
+    from abcsmc_tpu_torch import AbcSmc
+    from abcsmc_tpu_torch.models.simulators import HostBridgeSimulator
+
+    mesh = _setup(rank, world, port, shards)
+    journal = f"{outdir}/journal_{world}_{rank}"
+
+    def dice_host(params, seeds):
+        out = np.empty((len(params), 2), params.dtype)
+        with open(journal, "a") as fh:
+            for i in range(len(params)):
+                nd = int(round(float(params[i, 0])))
+                sd = int(round(float(params[i, 1])))
+                rolls = np.random.default_rng(int(seeds[i])).integers(
+                    1, sd + 1, size=nd)
+                out[i] = [rolls.sum(), rolls.std(ddof=0) if nd > 1 else 0.0]
+                fh.write(f"{nd} {sd} {int(seeds[i])}\n")
+        return out
+
+    cfg = _config(f"{outdir}/bridge_{world}.sqlite", num_samples=BRIDGE_N,
+                  predictive_prior_size=24)
+    AbcSmc(cfg, device="cpu", dtype=torch.float64,
+           simulator=HostBridgeSimulator(dice_host, nmet=2)).run_device(
+        seed=19, mesh=mesh)
+    _teardown(world)
+
+
 def _spawn(fn, world, shards, outdir):
     ctx = mp.spawn(fn, args=(world, _free_port(), shards, str(outdir)),
                    nprocs=world, join=False)
@@ -223,6 +261,33 @@ def test_writer_failure_raises_on_every_process(errors):
 
 def test_host_fallback_on_shared_store_raises(errors):
     assert [s["fallback"] for s in errors] == ["AbcError", "AbcError"]
+
+
+def test_two_process_host_bridge_exactly_once(tmp_path):
+    """The counterpart of tests/test_multihost.py::
+    test_two_process_host_bridge_exactly_once: each process calls the host
+    function for its own shards only, so the journals' union equals the
+    store's rows as multisets (none twice, none missing), both processes
+    carry a share, and the store equals the one-process 8-shard run's."""
+    _spawn(_bridge_worker, 2, 4, tmp_path)
+    _spawn(_bridge_worker, 1, 8, tmp_path)
+    two, one = (_store(tmp_path / f"bridge_{w}.sqlite") for w in (2, 1))
+    assert one == two
+    assert len(two["job"]) == BRIDGE_N * SETS
+
+    def journal(name):
+        text = (tmp_path / name).read_text()
+        return [tuple(map(int, ln.split())) for ln in text.splitlines()]
+
+    j0, j1 = journal("journal_2_0"), journal("journal_2_1")
+    with closing(sqlite3.connect(tmp_path / "bridge_2.sqlite")) as conn:
+        store = conn.execute(
+            "select cast(ndice as integer), cast(sides as integer), "
+            "cast(seed as integer) from par").fetchall()
+    assert len(store) == BRIDGE_N * SETS
+    assert sorted(j0 + j1) == sorted(store)
+    assert 0 < len(j0) < len(store) and 0 < len(j1) < len(store)
+    assert sorted(journal("journal_1_0")) == sorted(store)
 
 
 def test_multihost_launcher_fills_one_store(tmp_path):

@@ -52,6 +52,8 @@ TINY = {
     "calibration_study": F64 + ["--reps", "1", "--n", "128", "--configs",
                                 "gauss-tol,ma2"],
     "bench_native": ["--jobs", "30", "--workers", "1", "3"],
+    "validate": ["--shapes", "300x200x6,500x300x13", "--n", "4000",
+                 "--keep", "200", "--row-block", "1024", "--reps", "1"],
 }
 
 # keys of every measurement line of a tool (the first line names the card)
@@ -73,6 +75,7 @@ KEYS = {
     "calibration_study": set(),
     "bench_native": {"metric", "workers", "jobs", "seconds", "value",
                      "unit"},
+    "validate": {"metric", "ms"},
 }
 
 
@@ -112,11 +115,25 @@ def _million_run(lines):
     assert len(lines[-1]["posterior"]) == 6
 
 
+def _validate(lines):
+    kern, step, chunked = lines[1:3], lines[3], lines[4]
+    assert [r["shape"] for r in kern] == [[300, 200, 6], [500, 300, 13]]
+    # on the CPU the wrapper runs the plain version itself
+    assert all(r["max_abs_err"] == 0.0 and r["plain_ms"] is None
+               and r["bound_ms"] is None for r in kern)
+    assert step["ncomp_used"] > 1 and step["weights_finite"]
+    assert chunked["ncomp_used"] == chunked["ncomp_resident"]
+    assert chunked["survivor_overlap"] > 0.999
+    assert chunked["metric"].startswith("chunked row passes (row_block "
+                                        "1024, 4 blocks")
+
+
 # what the chip run reads from each kind of line, checked on the CPU
 NUMBERS = {"bench_weight_kernel": _bench_weight_kernel,
            "sweep_weight_kernel": _sweep_weight_kernel,
            "calibration_study": _calibration_study,
-           "million_run": _million_run}
+           "million_run": _million_run,
+           "validate": _validate}
 
 
 @pytest.mark.parametrize("tool", sorted(TINY))
@@ -384,3 +401,71 @@ def test_split_points_cover_the_plans_range():
     assert sweep_weight_kernel.split_points(200_000) == (
         [None] + [2**i for i in range(12)] + [3125])
     assert sweep_weight_kernel.split_points(64) == [None, 1]
+
+
+def test_validate_holds_the_jax_tools_shapes_and_data():
+    """The JAX tool's kernel shapes, step sizes and row block are the
+    defaults, and its data are drawn in its order from default_rng(0)."""
+    from abcsmc_tpu_torch.tools import validate
+
+    assert validate.SHAPES == ((10_000, 5_000, 6), (50_000, 50_000, 6),
+                               (200_000, 50_000, 13), (1_000_000, 50_000, 6))
+    assert (validate.N, validate.KEEP, validate.NPAR, validate.NMET,
+            validate.ROW_BLOCK) == (1_000_000, 50_000, 6, 13, 1 << 17)
+    assert validate.parse_shape("200000x50000x13") == (200_000, 50_000, 13)
+
+
+def test_gen_dengue_surrogate_reproduces_the_shipped_config(capsys,
+                                                           monkeypatch):
+    """Every field of examples/dengue_surrogate.json but the observed
+    values, and those within 6 sd (0.3) of the shipped ones. They are
+    truth @ mix plus the port's noise: the noise-free part equals
+    truth @ JAX's (16, 100) mixing matrix (PRNGKey(7), as JAX's
+    make_linear_gaussian_simulator builds it) to 1e-12 in float64;
+    the port's noise (a counter hash) and the shipped file's (threefry)
+    each lie within 6 sd (0.3) of it. The output is the same on every
+    call, laid out as the shipped file is; without CUDA and without
+    ``--device cpu`` the tool exits 2."""
+    import jax
+
+    from abcsmc_tpu_torch.models.simulators import counter_normals
+    from abcsmc_tpu_torch.tools import gen_dengue_surrogate
+
+    shipped_text = (REPO / "examples" / "dengue_surrogate.json").read_text()
+    shipped = json.loads(shipped_text)
+    cpu = ["--device", "cpu"]
+    assert gen_dengue_surrogate.main(cpu) == 0
+    first = capsys.readouterr().out
+    assert gen_dengue_surrogate.main(cpu) == 0
+    assert capsys.readouterr().out == first
+    got = json.loads(first)
+    assert first == json.dumps(got, indent=1) + "\n"
+    assert shipped_text == json.dumps(shipped, indent=1) + "\n"
+    assert list(got) == list(shipped)
+    for key in got:
+        if key != "metrics":
+            assert got[key] == shipped[key], key
+    assert len(got["metrics"]) == len(shipped["metrics"]) == 100
+    for g, s in zip(got["metrics"], shipped["metrics"]):
+        assert {k: v for k, v in g.items() if k != "value"} == \
+            {k: v for k, v in s.items() if k != "value"}
+
+    truth, obs = gen_dengue_surrogate.observed("cpu")
+    assert [m["value"] for m in got["metrics"]] == \
+        [round(float(v), 6) for v in obs]
+    jax_mix = np.asarray(jax.random.normal(jax.random.PRNGKey(7), (16, 100),
+                                           dtype=jnp.float32), np.float64)
+    mean = truth @ jax_mix
+    noise = 0.3 * counter_normals(torch.tensor([2024]), 100,
+                                  torch.float64)[0].numpy()
+    np.testing.assert_allclose(obs - noise, mean, rtol=0, atol=1e-12)
+    assert np.abs(noise).max() <= 6 * 0.3
+    shipped_vals = np.array([m["value"] for m in shipped["metrics"]])
+    assert np.abs(shipped_vals - mean).max() <= 6 * 0.3
+    assert np.abs(shipped_vals - obs).max() <= 6 * 0.3
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert gen_dengue_surrogate.main([]) == 2
+    assert "--device cpu" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        gen_dengue_surrogate.main(["--bad"])
