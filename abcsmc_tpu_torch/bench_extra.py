@@ -121,8 +121,10 @@ def main(argv=None) -> int:
         dv = torch.full((NPAR,), 0.02, **f32)
         a, b, _ = _prep_scaled(prev, prev, dv)
         a, b, lw = a.contiguous(), b.contiguous(), torch.log(w)
+        # 3xTF32, the config default's scheme
         emit(f"mixture-weight kernel ({route}) {k}x{k}",
-             timeit(lambda: mixture_logsumexp(a, b, lw), on))
+             timeit(lambda: mixture_logsumexp(a, b, lw, precision="high"),
+                    on))
         del prev, a, b, lw
 
     # --- resample ---

@@ -4,15 +4,19 @@ stage around it and, optionally, an earlier build of the kernel.
     python -m abcsmc_tpu_torch.bench_kernel [--baseline OLD.cu] [--out F]
 
 For each main-path shape (2,048^2 x 16, the dengue_surrogate keep; and
-50,000^2 x 6, the 1M cell's keep) and each mode it prints one JSON line:
+50,000^2 x 6, the 1M cell's keep), each dot scheme ("highest", "high",
+"default") and each mode it prints one JSON line:
 CUDA-event milliseconds per call (mean over ``--reps`` calls after a
-warm-up), the max abs difference from the plain version, and the weight
-stage (``weights.weight_predictive_prior`` with a flat prior: scaling,
-kernel, normalisation). ``--baseline`` takes a source with the first port's
+warm-up), the max abs difference from the scheme's plain version, the
+scheme's bound (:func:`kernel_bound_ms`), and the weight stage
+(``weights.weight_predictive_prior`` with a flat prior: scaling, kernel at
+the host brain's "highest", normalisation). ``--baseline`` takes a source
+with the first port's
 C interface (``mixture_logsumexp_f32(a, b, lw_shift, max_lw, part_max,
 part_sum, out, n, m, p, n_split, centers_per_split, online, stream)``),
 builds it with the same nvcc flags and times it through that interface's
-own wrapper logic, in turns with the current kernel (old, new, new, old).
+own wrapper logic, in turns with the current kernel's 3xTF32 scheme (old,
+new, new, old).
 Needs a CUDA device; exits 2 without one.
 """
 
@@ -32,12 +36,15 @@ from abcsmc_tpu_torch.ops._build import load_library
 
 SHAPES = ((2048, 2048, 16), (50_000, 50_000, 6))
 MODES = ("auto", "static", "online")
-# Peak rates of one H100 SXM at its 700 W limit: the special-function unit
-# issues 16 ex2 per SM per clock (CUDA C++ Programming Guide, arithmetic
-# instruction throughput, compute capability 9.0), TF32 tensor cores 495
-# TFLOP/s dense and HBM 3.35 TB/s (NVIDIA H100 data sheet).
+# Dense peaks of one H100 SXM per SM and clock: the special-function unit
+# issues 16 ex2 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0), the FP32 pipe 128 FFMA, the tensor
+# cores 1,024 TF32 and 2,048 BF16 FMAs in mma (NVIDIA H100 data sheet: 495
+# and 989 dense TFLOP/s over 132 SMs at 1.83 GHz); HBM 3.35 TB/s.
 SFU_PER_SM_CLOCK = 16
-TF32_FLOPS = 495e12
+FFMA_PER_SM_CLOCK = 128
+TF32_FMA_PER_SM_CLOCK = 1024
+BF16_FMA_PER_SM_CLOCK = 2048
 HBM_BYTES = 3.35e12
 
 
@@ -56,38 +63,79 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def kernel_bound_ms(n, m, p, device=0):
-    """The least time the card could take for one call at n x m x p: the
-    larger of its operations over their peak rate (one ex2 per logit on the
-    special-function units at the card's maximum SM clock; the 3xTF32 dot,
-    3 x 2 (p+2) flops per logit, on the tensor cores) and its bytes (each
-    input read once, the output written once) over the HBM rate."""
+def dot_fmas(p: int, precision: str) -> tuple:
+    """(term name, FMAs per logit, FMAs per logit as issued, per-SM
+    per-clock rate) of the scheme's dot over K = p + 2: 3K TF32 FMAs for
+    "high" (hi.hi, hi.lo and lo.hi), K BF16 FMAs for "default" (one
+    pass), K FFMAs for "highest". The count as issued pads K to the mma's
+    k-step (8 for m16n8k8, 16 for m16n8k16); the padding is zeros the
+    function does not need, so only the unpadded count enters the
+    bound."""
+    k = p + 2
+    if precision == "high":
+        return "tf32_mma", 3 * k, 3 * 8 * -(-k // 8), TF32_FMA_PER_SM_CLOCK
+    if precision == "default":
+        return "bf16_mma", k, 16 * -(-k // 16), BF16_FMA_PER_SM_CLOCK
+    if precision == "highest":
+        return "ffma", k, k, FFMA_PER_SM_CLOCK
+    raise ValueError(f"unknown precision {precision!r}")
+
+
+def kernel_bound_ms(n, m, p, precision="high", *, device=0):
+    """The least time the card could take for one call at n x m x p in the
+    scheme ``precision``: the largest of its operations over their peak
+    rate, each pipe apart (one ex2 per logit on the special-function
+    units; the scheme's dot over K = p + 2, :func:`dot_fmas`), and its
+    bytes (each input read once, the output written once) over the HBM
+    rate. Every operation term is taken at the one clock ``nvidia-smi``
+    reports as the card's maximum SM clock, from the per-SM per-clock
+    rates above; every term is returned in ``terms_ms``, with the dot as
+    the kernel issues it over padded K (``<dot>_padded_k``), which is
+    printed beside the bound and not part of it."""
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True,
     ).stdout.split()[0])
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_ms = sms * mhz * 1e3          # per-SM-clock operations in one ms
+    dot, fmas, issued, rate = dot_fmas(p, precision)
     terms = {
-        "ex2": 1e3 * n * m / (sms * SFU_PER_SM_CLOCK * mhz * 1e6),
-        "tf32_dot": 1e3 * 3 * 2 * (p + 2) * n * m / TF32_FLOPS,
+        "ex2": n * m / (SFU_PER_SM_CLOCK * per_ms),
+        dot: fmas * n * m / (rate * per_ms),
         "bytes": 1e3 * 4 * (n * p + m * p + m + n) / HBM_BYTES,
     }
     worst = max(terms, key=terms.get)
+    terms[f"{dot}_padded_k"] = issued * n * m / (rate * per_ms)
     return {"bound_ms": terms[worst], "terms_ms": terms,
             "bound_by": "bytes" if worst == "bytes" else "operations",
-            "sm_clock_mhz": mhz, "sms": sms}
+            "precision": precision, "sm_clock_mhz": mhz, "sms": sms}
 
 
 def sampled_error_f64(a, b, log_w, got, rows: int, mode: str = "auto"):
     """Max abs difference of ``got`` (the kernel's [n] output for a, b,
     log_w) from the float64 plain version on ``rows`` evenly spaced query
     rows (the plain version is a function of each query row by itself)."""
-    pick = torch.linspace(0, a.shape[0] - 1, min(rows, a.shape[0]),
-                          device=a.device).long().unique()
+    pick = _pick(a, rows)
     ref = kernels.mixture_logsumexp_reference(
         a[pick].double(), b.double(), log_w.double(), mode=mode)
     return float((got[pick].double() - ref).abs().max())
+
+
+def sampled_error_own(a, b, log_w, got, rows: int, mode: str = "auto",
+                      precision: str = "default"):
+    """Max abs difference of ``got`` from the scheme's own plain version
+    (``mixture_logsumexp_reference(precision=...)``, float32, as the
+    kernel's operands are rounded) on ``rows`` evenly spaced query rows."""
+    pick = _pick(a, rows)
+    ref = kernels.mixture_logsumexp_reference(
+        a[pick].contiguous(), b, log_w, mode=mode, precision=precision)
+    return float((got[pick] - ref).abs().max())
+
+
+def _pick(a, rows):
+    return torch.linspace(0, a.shape[0] - 1, min(rows, a.shape[0]),
+                          device=a.device).long().unique()
 
 
 def weight_inputs(n, m, p, seed, dev):
@@ -167,12 +215,16 @@ def main(argv=None) -> int:
         a, b = a.contiguous(), b.contiguous()
         lw = torch.log(w)
         reps = args.reps or (20 if n < 10_000 else 10)
-        for mode in MODES:
-            row = {"shape": [n, m, p], "mode": mode}
-            ref = kernels.mixture_logsumexp_reference(a, b, lw, mode=mode)
-            new = lambda: kernels.mixture_logsumexp(a, b, lw, mode=mode)  # noqa: E731
+        for mode, prec in ((x, y) for y in kernels.PRECISIONS
+                           for x in MODES):
+            row = {"shape": [n, m, p], "mode": mode, "precision": prec}
+            ref = kernels.mixture_logsumexp_reference(a, b, lw, mode=mode,
+                                                      precision=prec)
+            new = lambda: kernels.mixture_logsumexp(  # noqa: E731
+                a, b, lw, mode=mode, precision=prec)
             row["max_abs_err"] = float((new() - ref).abs().max())
-            if old is not None:
+            row.update(kernel_bound_ms(n, m, p, prec))
+            if old is not None and prec == "high":
                 prv = lambda: old(a, b, lw, mode)  # noqa: E731
                 row["baseline_max_abs_err"] = float((prv() - ref).abs().max())
                 t = [cuda_ms(f, reps) for f in (prv, new, new, prv)]
@@ -181,11 +233,12 @@ def main(argv=None) -> int:
             else:
                 row["ms"] = [cuda_ms(new, reps)]
             row["plain_ms"] = cuda_ms(
-                lambda: kernels.mixture_logsumexp_reference(a, b, lw,
-                                                            mode=mode), reps)
+                lambda: kernels.mixture_logsumexp_reference(
+                    a, b, lw, mode=mode, precision=prec), reps)
             lines.append(row)
             print(json.dumps(row), flush=True)
         flat = lambda th: torch.zeros(th.shape[0], device=dev)  # noqa: E731
+        # the host brain's weight stage: its kernel runs "highest"
         stage = {"shape": [n, m, p], "weight_stage_ms": cuda_ms(
             lambda: weights.weight_predictive_prior(params, prev, w, dv,
                                                     flat), reps)}

@@ -9,12 +9,14 @@ examples/include/examples.h:12-94):
 One flag more: ``--torch-device {cuda,cpu}`` (default cuda; there is no
 silent fall back to the CPU). ``--profile-dir`` writes a ``torch.profiler``
 trace. With ``--verbose`` the engine's timings and the weight kernel's
-launch count (``mixture_logsumexp.launches``) go to stderr.
+launch counts (``mixture_logsumexp.launches``, and by dot scheme) go to
+stderr.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sqlite3
 import sys
@@ -183,6 +185,10 @@ def main(argv: list[str] | None = None) -> int:
         sys.stderr.write(
             f"[kernel] mixture_logsumexp.launches {mixture_logsumexp.launches}"
             "\n"
+        )
+        sys.stderr.write(
+            "[kernel] mixture_logsumexp.launches_by_precision "
+            f"{json.dumps(mixture_logsumexp.launches_by_precision)}\n"
         )
     return 0
 

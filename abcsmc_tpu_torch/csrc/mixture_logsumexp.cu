@@ -9,19 +9,14 @@
 //
 // Replaces abcsmc_tpu/ops/pallas_kernels.py::mixture_logsumexp (the
 // wrapper's clamp, max_lw bound and augmentation), ::_mixture_kernel_static,
-// ::_mixture_kernel_online and ::_dot_logits (precision "high"), launched
-// there by ::_pallas_logsumexp.
+// ::_mixture_kernel_online and ::_dot_logits, launched there by
+// ::_pallas_logsumexp. The TPU wrapper's `precision` chooses how
+// _dot_logits forms the logits; here it chooses one of three programs
+// (`scheme`, a template parameter of the partial kernel):
 //
-// What bounds it: one exponential per logit. At 50,000 x 50,000 that is
-// 2.5e9 ex2 on the special-function units, 16 per SM per clock: 132 SMs x
-// 16 x 1.98 GHz = 4.18e12/s, 0.60 ms. The dot is 2 (p+2) flops per logit
-// (0.08 ms at TF32's 495 TFLOP/s, x3 for the split) and the inputs are
-// 2.4 MB (~1 us at 3.35 TB/s). So the design keeps every other pipe below
-// the SFU:
-//
-// - Logits on tensor cores, 3xTF32 (the Hopper form of the TPU's packed
-//   split for precision "high"). The operands are augmented as the TPU
-//   wrapper does, a_aug = [a, log2(e) (-|a|^2/2 - max_lw) + 64, 1] and
+// - HIGH (3xTF32; "high", the config default): the Hopper form of the
+//   TPU's packed split-bf16. The operands are augmented as the TPU wrapper
+//   does, a_aug = [a, log2(e) (-|a|^2/2 - max_lw) + 64, 1] and
 //   b_aug = [log2(e) b, 1, log2(e) (lw - |b|^2/2)], so one dot is the
 //   whole logit in log2 units, and the two large folded terms meet an
 //   exact 1 (~2^-23 relative error each). K = p+2 is padded to a multiple
@@ -29,6 +24,29 @@
 //   hi part and the TF32-rounded residual; hi.hi + hi.lo + lo.hi
 //   accumulate in FP32 with mma.sync.m16n8k8 (~2^-21 relative per product
 //   term; see hi_step for the order).
+// - BF16 (one pass; "default"): the TPU's one plain bf16 pass. The
+//   operands are the TPU wrapper's in natural units, a_aug = [a, -|a|^2/2
+//   - max_lw, 1] and b_aug = [b, 1, lw - |b|^2/2], each rounded to bf16
+//   (round to nearest even) from its float32 value, as the MXU rounds
+//   them; the squared norms are summed in FP64 and rounded once to FP32,
+//   so the plain version (ops/kernels.py) rounds the same values. One
+//   mma.sync.m16n8k16 per 16 columns of K (padded to 16) forms the logit
+//   minus max_lw in FP32; log2(e) and the headroom are applied to the
+//   accumulator (one FFMA per logit), not folded into the operands, where
+//   a bf16 column near 64 would carry an ulp of 0.5.
+// - FFMA (full FP32; "highest"): the TPU's 6-pass full-f32 product. Each
+//   thread forms its accumulator entries (the mma fragment coordinates)
+//   by p+2 FFMAs over HIGH's log2-unit operands, unsplit: a_aug rows in
+//   registers, b_aug from shared memory in plain [k][center] order.
+//
+// What bounds it: one exponential per logit. At 50,000 x 50,000 that is
+// 2.5e9 ex2 on the special-function units, 16 per SM per clock: 132 SMs x
+// 16 x 1.98 GHz = 4.18e12/s, 0.60 ms. The dot is 3 x 8 ceil((p+2)/8) TF32
+// FMAs per logit for HIGH (1,024 per SM per clock), 16 ceil((p+2)/16)
+// BF16 FMAs for BF16 (2,048) and p+2 FFMAs for FFMA (128); the inputs are
+// 2.4 MB (~1 us at 3.35 TB/s). So the design keeps every other pipe below
+// the SFU where it can (FFMA at p+2 >= 16 cannot):
+//
 // - ex2.approx.ftz on the pre-scaled logits (one MUFU op, no range
 //   reduction); the log is finished as log2 x ln 2.
 // - STATIC sums ex2(logit + 64) with the a-priori bound max_lw =
@@ -42,11 +60,12 @@
 // - AUTO runs STATIC, whose merge raises a device flag on any non-finite
 //   row, then launches ONLINE, which returns at once unless the flag is
 //   up: the TPU wrapper's lax.cond rerun, with no host sync.
-// - The query fragments (hi and lo) stay in registers for the whole kernel
-//   when K <= 32; the b_aug tiles are written once, in mma fragment order,
-//   by the prologue and stream through shared memory with cp.async, double
-//   buffered, so tile t+1 loads while tile t multiplies and exponentiates.
-//   For K > 32 both operands come through L1 instead.
+// - The query operands stay in registers for the whole kernel when K is
+//   small (HIGH K <= 32, BF16 K <= 32, FFMA K <= 24); the b_aug tiles are
+//   written once, in the scheme's order, by the prologue and stream
+//   through shared memory with cp.async, double buffered, so tile t+1
+//   loads while tile t multiplies and exponentiates. For larger K both
+//   operands come through L1 instead.
 // - The center axis is split across blockIdx.y (at keep 2,048 there are only
 //   16 query blocks for 132 SMs); the last block of each query block to
 //   finish merges the splits' partials (an arrival counter, no extra pass).
@@ -56,6 +75,7 @@
 // rule are the TPU wrapper's, pallas_kernels.py:209-215) and the partial
 // kernel(s).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -79,6 +99,23 @@ constexpr float kTau = 8.f;        // lazy-max slack, log2 units
 constexpr float kHeadroom = 64.f;
 constexpr unsigned kFull = 0xffffffffu;
 
+enum Scheme { kHigh = 0, kBf16 = 1, kFfma = 2 };
+
+// The largest KS whose query operands a scheme keeps in registers (HIGH
+// and BF16: k-steps of 8 and 16; FFMA: chunks of 8 columns). Above it the
+// KS = 0 instance reads them through L1.
+__host__ __device__ constexpr int max_reg_ks(int scheme) {
+  return scheme == kHigh ? 4 : scheme == kBf16 ? 2 : 3;
+}
+
+// float4s of shared memory in one stage buffer of the KS > 0 instance: a
+// stage of 64 centers' b_aug at up to its register k-steps (FFMA: up to 8
+// KS columns). The stage's own size (stage_f4) comes from the launch plan
+// (ops/kernels.py); a larger one is refused.
+__host__ __device__ constexpr int stage_capacity_f4(int scheme, int ks) {
+  return kStageTiles * ks * (scheme == kHigh ? 32 : 16);
+}
+
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
@@ -89,6 +126,15 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
   hi = to_tf32(x);
   lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ uint16_t to_bf16(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// {lo, hi} as one bf16x2 register (lo in the low half)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return (uint32_t)to_bf16(lo) | ((uint32_t)to_bf16(hi) << 16);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -106,7 +152,17 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Column `col` of row `r` of a_aug = [a, ca, 1, 0...] (ca in log2 units).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Column `col` of row `r` of a_aug = [a, ca, 1, 0...] (ca in the scheme's
+// units: log2 with headroom for HIGH and FFMA, natural for BF16).
 __device__ __forceinline__ float a_aug(const float* __restrict__ a, int r,
                                        int col, int n, int p, float ca) {
   if (col < p) return r < n ? a[(size_t)r * p + col] : 0.f;
@@ -114,16 +170,26 @@ __device__ __forceinline__ float a_aug(const float* __restrict__ a, int r,
   return col == p + 1 ? 1.f : 0.f;
 }
 
-// b_aug in mma B-fragment order: for n8 tile nt and k-step s, lane
-// (g = center % 8, t) holds float4 {b0 hi, b1 hi, b0 lo, b1 lo} with
-// b0 = B[k = 8s + t][g] and b1 = B[k = 8s + t + 4][g]. Dead centers (sentinel
-// weight or padding) are all zero but for the weight column, which holds
-// the TF32-exact sentinel, so their logit is exactly that sentinel.
+// b_aug, written once per call in the scheme's order. Dead centers
+// (sentinel weight or padding) are all zero but for the weight column,
+// which holds the sentinel (exact in TF32 and bf16), so their logit is
+// exactly that sentinel and its exponential exactly 0.
+// - HIGH: mma B-fragment order: for n8 tile nt and k-step s, lane
+//   (g = center % 8, t) holds float4 {b0 hi, b1 hi, b0 lo, b1 lo} with
+//   b0 = B[k = 8s + t][g] and b1 = B[k = 8s + t + 4][g]; log2 units.
+// - BF16: m16n8k16 B-fragment order: lane (g, t) of k-step s holds
+//   {B[16s + 2t][g], B[16s + 2t + 1][g]} and {B[16s + 2t + 8][g],
+//   B[16s + 2t + 9][g]} as two bf16x2; natural units.
+// - FFMA: center c of a stage holds B[k][c] at k * 64 + c, K = ks = p + 2;
+//   log2 units.
+// Stage st (centers 64 st ..) starts stage_f4 float4s after stage st - 1;
+// the orders above are those within a stage (nt: the n8 tile in it).
 __global__ void __launch_bounds__(kPrologueThreads)
 prologue_kernel(const float* __restrict__ b, const float* __restrict__ log_w,
-                int m, int p, int ks, int m_pad, float* __restrict__ bfrag,
-                float* __restrict__ part_lwmax, int* __restrict__ arrivals,
-                int q_blocks, int* __restrict__ flag) {
+                int m, int p, int ks, int stage_f4, int scheme, int m_pad,
+                float* __restrict__ bfrag, float* __restrict__ part_lwmax,
+                int* __restrict__ arrivals, int q_blocks,
+                int* __restrict__ flag) {
   __shared__ float red[kPrologueThreads / 32];
   const int j = blockIdx.x * kPrologueThreads + threadIdx.x;
   for (int i = j; i < q_blocks; i += gridDim.x * kPrologueThreads)
@@ -143,6 +209,34 @@ prologue_kernel(const float* __restrict__ b, const float* __restrict__ log_w,
   }
   if (j >= m_pad) return;
 
+  const int nt = (j % kStageCenters) >> 3, g = j & 7;
+  float* const stage = bfrag + (size_t)(j / kStageCenters) * stage_f4 * 4;
+  if (scheme == kBf16) {
+    double bsq = 0.0;
+    if (live)
+      for (int c = 0; c < p; ++c) {
+        const double v = b[(size_t)j * p + c];
+        bsq = fma(v, v, bsq);
+      }
+    const float col_w = live ? fmaf(-0.5f, (float)bsq, lw) : kNegInf;
+    uint16_t* bh = reinterpret_cast<uint16_t*>(stage);
+    for (int k = 0; k < 16 * ks; ++k) {
+      float v = 0.f;
+      if (k == p + 1)
+        v = col_w;
+      else if (live && k < p)
+        v = b[(size_t)j * p + k];
+      else if (live && k == p)
+        v = 1.f;
+      const int kk = k & 15, reg = kk >> 3, t = (kk & 7) >> 1;
+      const size_t o =
+          (((((size_t)nt * ks + (k >> 4)) * 32 + g * 4 + t) * 2 + reg) * 2) +
+          (kk & 1);
+      bh[o] = to_bf16(v);
+    }
+    return;
+  }
+
   float bsq = 0.f;
   if (live)
     for (int c = 0; c < p; ++c) {
@@ -150,8 +244,8 @@ prologue_kernel(const float* __restrict__ b, const float* __restrict__ log_w,
       bsq = fmaf(v, v, bsq);
     }
   const float sentinel = __uint_as_float(to_tf32(kNegInf * kLog2e));
-  const int nt = j >> 3, g = j & 7;
-  for (int k = 0; k < 8 * ks; ++k) {
+  const int kmax = scheme == kHigh ? 8 * ks : ks;
+  for (int k = 0; k < kmax; ++k) {
     float v;
     if (!live) {
       v = k == p + 1 ? sentinel : 0.f;
@@ -162,13 +256,17 @@ prologue_kernel(const float* __restrict__ b, const float* __restrict__ log_w,
     } else {
       v = k == p + 1 ? kLog2e * fmaf(-0.5f, bsq, lw) : 0.f;
     }
+    if (scheme == kFfma) {
+      stage[k * kStageCenters + j % kStageCenters] = v;
+      continue;
+    }
     uint32_t hi, lo;
     split_tf32(v, hi, lo);
     const int kk = k & 7;
     const size_t o =
         (((size_t)nt * ks + (k >> 3)) * 32 + g * 4 + (kk & 3)) * 4 + (kk >> 2);
-    bfrag[o] = __uint_as_float(hi);
-    bfrag[o + 2] = __uint_as_float(lo);
+    stage[o] = __uint_as_float(hi);
+    stage[o + 2] = __uint_as_float(lo);
   }
 }
 
@@ -207,6 +305,7 @@ struct PartialArgs {
   const float4* bfrag;
   const float* lwmax;  // per-prologue-block maxima of the live log-weights
   int n_lwmax, n, p, ks, n_stages, stages_per_split, n_split;
+  int stage_f4;        // float4s of one stage (the launch plan's)
   float* part_max;     // [n_split, n] (ONLINE only)
   float* part_sum;     // [n_split, n]
   int* arrivals;       // [q_blocks], 0 on entry and on exit
@@ -233,16 +332,18 @@ __device__ __forceinline__ void hi_step(float (&d)[4], const uint32_t (&hi)[4],
   }
 }
 
-// KS > 0: K = 8 KS, query fragments in registers, b_aug stages through
-// shared memory (cp.async, two buffers). KS == 0: any K (ks k-steps), both
-// operands read through L1. Each block writes its partial (max, sum) per
-// row; the last of the n_split blocks of a query block to arrive merges
-// them and writes out[] (no separate combine launch).
-template <int KS, bool ONLINE>
+// KS > 0: the query operands in registers (HIGH: K = 8 KS; BF16: K <= 16
+// KS; FFMA: K <= 8 KS), b_aug stages through shared memory (cp.async, two
+// buffers). KS == 0: any K, both operands read through L1. Each block
+// writes its partial (max, sum) per row; the last of the n_split blocks of
+// a query block to arrive merges them and writes out[] (no separate
+// combine launch).
+template <int SCHEME, int KS, bool ONLINE>
 __global__ void __launch_bounds__(kThreads)
 mixture_partial_kernel(const PartialArgs A) {
   static_assert(kRows == kThreads, "the merge takes one row per thread");
-  constexpr int kStage = KS > 0 ? kStageTiles * KS * 32 : 1;  // float4s
+  static_assert(KS <= max_reg_ks(SCHEME), "KS beyond the register path");
+  constexpr int kStage = KS == 0 ? 1 : stage_capacity_f4(SCHEME, KS);
   __shared__ __align__(16) float4 sb[KS > 0 ? 2 : 1][kStage];
   __shared__ float s_max_lw;
   __shared__ bool s_last;
@@ -250,7 +351,7 @@ mixture_partial_kernel(const PartialArgs A) {
   if (A.gate != nullptr && *A.gate == 0) return;  // auto: nothing to rerun
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int n = A.n, p = A.p;
+  const int n = A.n, p = A.p, K = p + 2;
 
   // max_lw: the largest live log-weight, 0 when there is none
   if (warp == 0) {
@@ -265,8 +366,8 @@ mixture_partial_kernel(const PartialArgs A) {
   const int st_end = min(A.n_stages, st_begin + A.stages_per_split);
   auto issue = [&](int st, int buf) {
     if constexpr (KS > 0) {
-      const float4* src = A.bfrag + (size_t)st * kStage;
-      for (int i = threadIdx.x; i < kStage; i += kThreads) {
+      const float4* src = A.bfrag + (size_t)st * A.stage_f4;
+      for (int i = threadIdx.x; i < A.stage_f4; i += kThreads) {
         const uint32_t dst =
             static_cast<uint32_t>(__cvta_generic_to_shared(&sb[buf][i]));
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
@@ -279,7 +380,8 @@ mixture_partial_kernel(const PartialArgs A) {
   __syncthreads();  // s_max_lw
   const float max_lw = s_max_lw;
 
-  // rows of this thread: r[mt][h] = base + 16 mt + g + 8 h
+  // rows of this thread: r[mt][h] = base + 16 mt + g + 8 h; ca is the row
+  // constant column of a_aug in the scheme's units
   int r[kMT][2];
   float ca[kMT][2];
 #pragma unroll
@@ -287,15 +389,27 @@ mixture_partial_kernel(const PartialArgs A) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       r[mt][h] = blockIdx.x * kRows + warp * 16 * kMT + 16 * mt + g + 8 * h;
-      float sq = 0.f;
-      if (r[mt][h] < n)
-        for (int c = t; c < p; c += 4) {
-          const float v = A.a[(size_t)r[mt][h] * p + c];
-          sq = fmaf(v, v, sq);
-        }
-      sq += __shfl_xor_sync(kFull, sq, 1);
-      sq += __shfl_xor_sync(kFull, sq, 2);
-      ca[mt][h] = fmaf(kLog2e, fmaf(-0.5f, sq, -max_lw), kHeadroom);
+      if constexpr (SCHEME == kBf16) {
+        double sq = 0.0;
+        if (r[mt][h] < n)
+          for (int c = t; c < p; c += 4) {
+            const double v = A.a[(size_t)r[mt][h] * p + c];
+            sq = fma(v, v, sq);
+          }
+        sq += __shfl_xor_sync(kFull, sq, 1);
+        sq += __shfl_xor_sync(kFull, sq, 2);
+        ca[mt][h] = fmaf(-0.5f, (float)sq, -max_lw);
+      } else {
+        float sq = 0.f;
+        if (r[mt][h] < n)
+          for (int c = t; c < p; c += 4) {
+            const float v = A.a[(size_t)r[mt][h] * p + c];
+            sq = fmaf(v, v, sq);
+          }
+        sq += __shfl_xor_sync(kFull, sq, 1);
+        sq += __shfl_xor_sync(kFull, sq, 2);
+        ca[mt][h] = fmaf(kLog2e, fmaf(-0.5f, sq, -max_lw), kHeadroom);
+      }
     }
 
   auto a_frag = [&](int s, int mt, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
@@ -305,12 +419,39 @@ mixture_partial_kernel(const PartialArgs A) {
     split_tf32(a_aug(A.a, r[mt][0], c0 + 4, n, p, ca[mt][0]), hi[2], lo[2]);
     split_tf32(a_aug(A.a, r[mt][1], c0 + 4, n, p, ca[mt][1]), hi[3], lo[3]);
   };
-  uint32_t ahi[KS > 0 ? KS : 1][kMT][4], alo[KS > 0 ? KS : 1][kMT][4];
+  // m16n8k16 A fragment: rows g, g+8 x columns 2t, 2t+1 (+8), bf16x2
+  auto a_frag_bf16 = [&](int s, int mt, uint32_t (&f)[4]) {
+    const int c0 = 16 * s + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int h = i & 1, c = c0 + 8 * (i >> 1);
+      f[i] = pack_bf16(a_aug(A.a, r[mt][h], c, n, p, ca[mt][h]),
+                       a_aug(A.a, r[mt][h], c + 1, n, p, ca[mt][h]));
+    }
+  };
+  constexpr int kRegHigh = SCHEME == kHigh && KS > 0 ? KS : 1;
+  constexpr int kRegBf16 = SCHEME == kBf16 && KS > 0 ? KS : 1;
+  constexpr int kRegFfma = SCHEME == kFfma && KS > 0 ? 8 * KS : 1;
+  uint32_t ahi[kRegHigh][kMT][4], alo[kRegHigh][kMT][4];
+  uint32_t abf[kRegBf16][kMT][4];
+  float af[kMT][2][kRegFfma];
   if constexpr (KS > 0) {
 #pragma unroll
-    for (int s = 0; s < KS; ++s)
+    for (int mt = 0; mt < kMT; ++mt) {
+      if constexpr (SCHEME == kHigh) {
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) a_frag(s, mt, ahi[s][mt], alo[s][mt]);
+        for (int s = 0; s < KS; ++s) a_frag(s, mt, ahi[s][mt], alo[s][mt]);
+      } else if constexpr (SCHEME == kBf16) {
+#pragma unroll
+        for (int s = 0; s < KS; ++s) a_frag_bf16(s, mt, abf[s][mt]);
+      } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int k = 0; k < 8 * KS; ++k)
+            af[mt][h][k] = a_aug(A.a, r[mt][h], k, n, p, ca[mt][h]);
+      }
+    }
   }
 
   float mx[kMT][2], th[kMT][2], sm[kMT][2];
@@ -334,12 +475,12 @@ mixture_partial_kernel(const PartialArgs A) {
       __syncthreads();
       tile = sb[it & 1];
     } else {
-      tile = A.bfrag + (size_t)st * kStageTiles * A.ks * 32;
+      tile = A.bfrag + (size_t)st * A.stage_f4;
     }
 #pragma unroll 2
     for (int nt = 0; nt < kStageTiles; ++nt) {
       float d[kMT][4] = {};
-      if constexpr (KS > 0) {
+      if constexpr (SCHEME == kHigh && KS > 0) {
         float4 bv[KS];
 #pragma unroll
         for (int s = 0; s < KS; ++s) {  // small terms first
@@ -357,7 +498,7 @@ mixture_partial_kernel(const PartialArgs A) {
 #pragma unroll
           for (int mt = 0; mt < kMT; ++mt)
             hi_step(d[mt], ahi[s][mt], bv[s], s == 0);
-      } else {
+      } else if constexpr (SCHEME == kHigh) {
         float dl[kMT][4] = {};
         for (int s = 0; s < A.ks; ++s) {
           const float4 bv = tile[(nt * A.ks + s) * 32 + lane];
@@ -374,6 +515,62 @@ mixture_partial_kernel(const PartialArgs A) {
         for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
           for (int i = 0; i < 4; ++i) d[mt][i] += dl[mt][i];
+      } else if constexpr (SCHEME == kBf16) {
+        const uint2* tile2 = reinterpret_cast<const uint2*>(tile);
+        if constexpr (KS > 0) {
+#pragma unroll
+          for (int s = 0; s < KS; ++s) {
+            const uint2 bv = tile2[(nt * KS + s) * 32 + lane];
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt)
+              mma_bf16(d[mt], abf[s][mt], bv.x, bv.y);
+          }
+        } else {
+          for (int s = 0; s < A.ks; ++s) {
+            const uint2 bv = tile2[(nt * A.ks + s) * 32 + lane];
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt) {
+              uint32_t f[4];
+              a_frag_bf16(s, mt, f);
+              mma_bf16(d[mt], f, bv.x, bv.y);
+            }
+          }
+        }
+        // natural units -> log2 units with the headroom
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            d[mt][i] = fmaf(d[mt][i], kLog2e, kHeadroom);
+      } else {  // FFMA: rows g, g+8 of each m-tile x columns 2t, 2t+1
+        const float2* tile2 = reinterpret_cast<const float2*>(tile);
+        if constexpr (KS > 0) {
+#pragma unroll
+          for (int k = 0; k < 8 * KS; ++k) {
+            if (k >= K) break;
+            const float2 bv = tile2[k * (kStageCenters / 2) + nt * 4 + t];
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt) {
+              d[mt][0] = fmaf(af[mt][0][k], bv.x, d[mt][0]);
+              d[mt][1] = fmaf(af[mt][0][k], bv.y, d[mt][1]);
+              d[mt][2] = fmaf(af[mt][1][k], bv.x, d[mt][2]);
+              d[mt][3] = fmaf(af[mt][1][k], bv.y, d[mt][3]);
+            }
+          }
+        } else {
+          for (int k = 0; k < K; ++k) {
+            const float2 bv = tile2[k * (kStageCenters / 2) + nt * 4 + t];
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt) {
+              const float x0 = a_aug(A.a, r[mt][0], k, n, p, ca[mt][0]);
+              const float x1 = a_aug(A.a, r[mt][1], k, n, p, ca[mt][1]);
+              d[mt][0] = fmaf(x0, bv.x, d[mt][0]);
+              d[mt][1] = fmaf(x0, bv.y, d[mt][1]);
+              d[mt][2] = fmaf(x1, bv.x, d[mt][2]);
+              d[mt][3] = fmaf(x1, bv.y, d[mt][3]);
+            }
+          }
+        }
       }
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
@@ -436,56 +633,76 @@ mixture_partial_kernel(const PartialArgs A) {
   if (A.flag_out != nullptr && !isfinite(v)) *A.flag_out = 1;
 }
 
-template <bool ONLINE>
-cudaError_t launch_partial(dim3 grid, cudaStream_t s, const PartialArgs& A) {
-  switch (A.ks) {
-    case 1: mixture_partial_kernel<1, ONLINE><<<grid, kThreads, 0, s>>>(A);
-      break;
-    case 2: mixture_partial_kernel<2, ONLINE><<<grid, kThreads, 0, s>>>(A);
-      break;
-    case 3: mixture_partial_kernel<3, ONLINE><<<grid, kThreads, 0, s>>>(A);
-      break;
-    case 4: mixture_partial_kernel<4, ONLINE><<<grid, kThreads, 0, s>>>(A);
-      break;
-    default: mixture_partial_kernel<0, ONLINE><<<grid, kThreads, 0, s>>>(A);
+// The instance for kreg (the scheme's register k-steps): KS = kreg where
+// the scheme keeps the query operands in registers, else KS = 0.
+template <int SCHEME, bool ONLINE, int KS = 1>
+cudaError_t launch_partial(int kreg, dim3 grid, cudaStream_t s,
+                           const PartialArgs& A) {
+  if constexpr (KS <= max_reg_ks(SCHEME)) {
+    if (kreg == KS) {
+      if (A.stage_f4 > stage_capacity_f4(SCHEME, KS))
+        return cudaErrorInvalidValue;
+      mixture_partial_kernel<SCHEME, KS, ONLINE><<<grid, kThreads, 0, s>>>(A);
+      return cudaGetLastError();
+    }
+    return launch_partial<SCHEME, ONLINE, KS + 1>(kreg, grid, s, A);
+  } else {
+    mixture_partial_kernel<SCHEME, 0, ONLINE><<<grid, kThreads, 0, s>>>(A);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+}
+
+template <bool ONLINE>
+cudaError_t launch_scheme(int scheme, dim3 grid, cudaStream_t s,
+                          const PartialArgs& A) {
+  switch (scheme) {
+    case kHigh: return launch_partial<kHigh, ONLINE>(A.ks, grid, s, A);
+    case kBf16: return launch_partial<kBf16, ONLINE>(A.ks, grid, s, A);
+    default:
+      return launch_partial<kFfma, ONLINE>((A.ks + 7) / 8, grid, s, A);
+  }
 }
 
 }  // namespace
 
 // C entry bound with ctypes. Pointers are device pointers, `stream` the
 // caller's cudaStream_t; the workspace segments are sized by the wrapper's
-// launch plan (ops/kernels.py::launch_plan): bfrag [n_stages * 64 * ks * 16],
-// lwmax [prologue_blocks], part_max and part_sum [n_split, n], arrivals
-// [q_blocks] and flag [1] (int32). mode: 0 static, 1 online, 2 auto (static
-// pass that flags a non-finite row, then an online pass that runs only if
-// flagged: the TPU wrapper's lax.cond, on the device). Returns the first
-// cudaGetLastError() that is not 0 (0 = success); the kernels run
-// asynchronously on `stream` and nothing waits for them.
+// launch plan (ops/kernels.py::launch_plan): bfrag [n_stages * stage_f4
+// float4s], lwmax [prologue_blocks], part_max and part_sum [n_split, n],
+// arrivals [q_blocks] and flag [1] (int32). ks counts the scheme's
+// k-steps: of 8 columns (HIGH), 16 (BF16) or 1 (FFMA, ks = p+2); stage_f4
+// is the plan's size of one stage of 64 centers' b_aug, in float4s.
+// mode: 0 static, 1 online, 2 auto (static pass that flags a non-finite
+// row, then an online pass that runs only if flagged: the TPU wrapper's
+// lax.cond, on the device). scheme: 0 HIGH (3xTF32), 1 BF16, 2 FFMA.
+// Returns the first cudaGetLastError() that is not 0 (0 = success); the
+// kernels run asynchronously on `stream` and nothing waits for them.
 extern "C" int mixture_logsumexp_f32(
     const float* a, const float* b, const float* log_w, float* bfrag,
     float* lwmax, float* part_max, float* part_sum, int* arrivals, int* flag,
-    float* out, int n, int m, int p, int ks, int n_stages,
+    float* out, int n, int m, int p, int ks, int stage_f4, int n_stages,
     int stages_per_split, int n_split, int prologue_blocks, int mode,
-    void* stream) {
+    int scheme, void* stream) {
+  if (scheme < kHigh || scheme > kFfma || stage_f4 < 1)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int q_blocks = (n + kRows - 1) / kRows;
   prologue_kernel<<<prologue_blocks, kPrologueThreads, 0, s>>>(
-      b, log_w, m, p, ks, n_stages * kStageCenters, bfrag, lwmax, arrivals,
-      q_blocks, flag);
+      b, log_w, m, p, ks, stage_f4, scheme, n_stages * kStageCenters, bfrag,
+      lwmax, arrivals, q_blocks, flag);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid(q_blocks, n_split);
   PartialArgs A{a, reinterpret_cast<const float4*>(bfrag), lwmax,
                 prologue_blocks, n, p, ks, n_stages, stages_per_split,
-                n_split, part_max, part_sum, arrivals, nullptr, nullptr, out};
+                n_split, stage_f4, part_max, part_sum,
+                arrivals, nullptr, nullptr, out};
   if (mode != 1) {
     A.flag_out = mode == 2 ? flag : nullptr;
-    err = launch_partial<false>(grid, s, A);
+    err = launch_scheme<false>(scheme, grid, s, A);
     if (err != cudaSuccess || mode == 0) return err;
     A.flag_out = nullptr;
     A.gate = flag;
   }
-  return launch_partial<true>(grid, s, A);
+  return launch_scheme<true>(scheme, grid, s, A);
 }

@@ -27,8 +27,11 @@ gating decides who writes: process 0 mirrors a shared store
 on one process raises on all (``_writer_guard``), the brain's early stop
 reaches every loop (``_broadcast_flag``), and the host engine refuses a
 shared store on several processes. The brain runs on the mesh's lead
-device. ``weight_precision`` is accepted and changes nothing (the kernel
-has one dot scheme).
+device. ``weight_precision`` is the weight kernel's dot scheme in the
+device step ("high" 3xTF32, "default" one BF16 pass, "highest" FP32
+FMAs), as it is the Pallas kernel's in the JAX step; the host brain's
+weights run "highest", JAX's default there. A CPU run ignores it, as JAX
+off the TPU does.
 """
 
 from __future__ import annotations

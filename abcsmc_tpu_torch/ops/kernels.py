@@ -11,6 +11,16 @@ launches ``csrc/mixture_logsumexp.cu`` (built by nvcc for sm_90a at first
 use, see :mod:`abcsmc_tpu_torch.ops._build`) or raises; on a CPU tensor it
 runs :func:`mixture_logsumexp_reference`. Nothing else chooses between them.
 
+``precision`` chooses the program that forms the logits, as the TPU
+wrapper's argument of the same name chooses its dot scheme: "high" (the
+config's default ``weight_precision``) is 3xTF32 on tensor cores,
+"default" one BF16 tensor-core pass over operands rounded to bfloat16
+(the TPU's one bf16 pass; 0.03-0.1 nats from float64 on an H100, as
+``chip_smoke.py``'s ``kernel_schemes`` phase measures it, see PERF.md),
+"highest" (the wrapper's own default) an FP32 FMA product. Each is a
+program of its own in the source. A CPU call ignores the value, as JAX's
+XLA path off the TPU does.
+
 Semantics kept from the TPU wrapper: a true -inf log-weight is clamped to the
 finite sentinel ``-1e30``; the static max bound ``max_lw`` is the largest
 non-sentinel log-weight (0 if there is none); ``mode`` is "static" (sum of
@@ -32,7 +42,17 @@ import torch
 
 NEG_INF = -1e30
 MODES = ("auto", "static", "online")
+PRECISIONS = ("highest", "high", "default")
 _CSRC_MODE = {"static": 0, "online": 1, "auto": 2}
+_CSRC_SCHEME = {"high": 0, "default": 1, "highest": 2}
+# contraction columns per k-step: an mma.m16n8k8 (TF32), an mma.m16n8k16
+# (BF16), one FFMA
+_K_STEP = {"high": 8, "default": 16, "highest": 1}
+# bytes the b_aug stage holds per center and padded column: a TF32 hi and
+# lo, a bfloat16, a float. The stage's size is decided here only: the plan
+# passes it to the C entry (csrc ``stage_f4``), which lays stages out at it
+# and refuses one larger than the partial kernel's shared-memory buffer.
+_BYTES_PER_K = {"high": 8, "default": 2, "highest": 4}
 _ROWS = 128                # query rows per block (csrc kRows)
 _STAGE_CENTERS = 64        # centers per shared-memory stage (csrc)
 _PROLOGUE_THREADS = 256    # centers per prologue block (csrc)
@@ -50,29 +70,82 @@ def _max_lw(lw):
     return torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
 
 
-def mixture_logsumexp_reference(a, b, log_w, *, mode: str = "auto"):
+def _check_precision(precision):
+    if precision not in PRECISIONS:
+        raise ValueError(
+            f"precision must be one of {PRECISIONS}, got {precision!r}")
+
+
+def _bf16(x):
+    """x rounded to bfloat16 from its float32 value (round to nearest even,
+    as the MXU and __float2bfloat16_rn round), back in x's dtype."""
+    return x.to(torch.float32).to(torch.bfloat16).to(x.dtype)
+
+
+def _sq_norms(x):
+    """Row sums of squares, summed in float64 and rounded once to x's
+    dtype: the kernel's "default" scheme sums them the same way, so both
+    round the row and column constants from the same float32 value."""
+    return (x.double() ** 2).sum(dim=1).to(x.dtype)
+
+
+def _bf16_operands(a, b, lw, max_lw):
+    """The TPU wrapper's augmented operands in natural units
+    (pallas_kernels.py:221-236), a_aug = [a, -|a|^2/2 - max_lw, 1] and
+    b_aug = [b, 1, lw - |b|^2/2], each entry rounded to bfloat16 from
+    float32. Their dot is the logit minus max_lw as one bf16 pass forms it
+    (the products are exact; padded centers, whose weight column is -1e30,
+    add exactly 0 and are left out)."""
+    n, m = a.shape[0], b.shape[0]
+    one_n = torch.ones((n, 1), dtype=a.dtype, device=a.device)
+    one_m = torch.ones((m, 1), dtype=a.dtype, device=a.device)
+    a_aug = torch.cat([a, (-0.5 * _sq_norms(a) - max_lw)[:, None], one_n], 1)
+    b_aug = torch.cat([b, one_m, (lw - 0.5 * _sq_norms(b))[:, None]], 1)
+    return _bf16(a_aug), _bf16(b_aug)
+
+
+def mixture_logsumexp_reference(a, b, log_w, *, mode: str = "auto",
+                                precision: str | None = None):
     """Plain PyTorch version of :func:`mixture_logsumexp`, any float dtype:
     a blocked logsumexp over blocks of 2,048 centers (the core of
     ``abcsmc_tpu.ops.weights._log_kernel_mixture_density_xla``) with the
-    kernel's clamp, ``max_lw`` and mode semantics."""
+    kernel's clamp, ``max_lw`` and mode semantics.
+
+    ``precision`` None, "high" and "highest" form the logits in the call's
+    dtype; "default" forms them as the kernel's BF16 scheme does, from the
+    TPU wrapper's augmented operands rounded to bfloat16
+    (:func:`_bf16_operands`), their dot in the call's dtype, and adds
+    ``max_lw`` back. It is the oracle each scheme of the kernel is held
+    against."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if precision is not None:
+        _check_precision(precision)
     lw = torch.clamp_min(log_w.to(a.dtype), NEG_INF)
     max_lw = _max_lw(lw)
     n, m = a.shape[0], b.shape[0]
-    a_sq = (a * a).sum(dim=1)
+    if precision == "default":
+        a_op, b_op = _bf16_operands(a, b, lw, max_lw)
 
-    def run(online: bool):
-        run_max = torch.full((n,), NEG_INF, dtype=a.dtype, device=a.device)
-        run_sum = torch.zeros((n,), dtype=a.dtype, device=a.device)
-        for j0 in range(0, m, _REF_BLOCK):
+        def logits_of(j0):
+            return a_op @ b_op[j0:j0 + _REF_BLOCK].T
+    else:
+        a_sq = (a * a).sum(dim=1)
+
+        def logits_of(j0):
             bb = b[j0:j0 + _REF_BLOCK]
-            logits = (
+            return (
                 a @ bb.T
                 - 0.5 * a_sq[:, None]
                 - 0.5 * (bb * bb).sum(dim=1)[None, :]
                 + (lw[j0:j0 + _REF_BLOCK] - max_lw)[None, :]
             )
+
+    def run(online: bool):
+        run_max = torch.full((n,), NEG_INF, dtype=a.dtype, device=a.device)
+        run_sum = torch.zeros((n,), dtype=a.dtype, device=a.device)
+        for j0 in range(0, m, _REF_BLOCK):
+            logits = logits_of(j0)
             if online:
                 new_max = torch.maximum(run_max, logits.amax(dim=1))
                 run_sum = run_sum * torch.exp(run_max - new_max) + torch.exp(
@@ -95,12 +168,14 @@ def mixture_logsumexp_reference(a, b, log_w, *, mode: str = "auto"):
 class LaunchPlan(NamedTuple):
     """How one call is cut into launches (all host integers).
 
-    ``ks`` k-steps of 8 cover the augmented width p+2; the centers are
-    padded to ``n_stages`` stages of 64, and split ``y`` of the partial
-    kernel's grid ``(q_blocks, n_split)`` takes stages
+    ``ks`` k-steps of ``k_step`` columns (8 for "high", 16 for "default",
+    1 for "highest") cover the augmented width p+2; the centers are padded
+    to ``n_stages`` stages of 64, and split ``y`` of the partial kernel's
+    grid ``(q_blocks, n_split)`` takes stages
     ``[y * stages_per_split, min(n_stages, (y + 1) * stages_per_split))``.
-    ``ws_floats`` is the 4-byte workspace: the b_aug fragments, the
-    prologue's per-block maxima, the per-split partial sums and maxima, the
+    ``ws_floats`` is the 4-byte workspace: the b_aug stages in the
+    scheme's layout (``stage_floats`` words each), the prologue's
+    per-block maxima, the per-split partial sums and maxima, the
     per-query-block arrival counters and the rerun flag (int32), each
     starting at an offset in ``offsets`` (multiples of 4 words)."""
     ks: int
@@ -111,16 +186,31 @@ class LaunchPlan(NamedTuple):
     prologue_blocks: int
     offsets: tuple
     ws_floats: int
+    precision: str = "high"
+
+    @property
+    def k_step(self) -> int:
+        return _K_STEP[self.precision]
 
     @property
     def k_pad(self) -> int:
-        return 8 * self.ks
+        return self.k_step * self.ks
+
+    @property
+    def stage_floats(self) -> int:
+        return _stage_floats(self.ks, self.precision)
 
     def split_centers(self, y: int, m: int) -> range:
         """The real centers (index < m) of split ``y``."""
         lo = y * self.stages_per_split * _STAGE_CENTERS
         hi = (y + 1) * self.stages_per_split * _STAGE_CENTERS
         return range(min(lo, m), min(hi, m))
+
+
+def _stage_floats(ks: int, precision: str) -> int:
+    """4-byte words of one stage of 64 centers' b_aug at ``ks`` k-steps."""
+    return (_STAGE_CENTERS * _K_STEP[precision] * ks
+            * _BYTES_PER_K[precision] // 4)
 
 
 def _check_split(n_split: int, m: int):
@@ -133,7 +223,8 @@ def _check_split(n_split: int, m: int):
 
 @functools.lru_cache(maxsize=64)
 def launch_plan(n: int, m: int, p: int, sms: int, online: bool, *,
-                n_split: int | None = None) -> LaunchPlan:
+                n_split: int | None = None,
+                precision: str = "high") -> LaunchPlan:
     """The launch plan of one call on a card with ``sms`` SMs: enough center
     splits that the partial kernel has about ``_BLOCKS_PER_SM`` blocks per
     SM (at keep 2,048 there are only 16 query blocks) and that no split
@@ -145,8 +236,10 @@ def launch_plan(n: int, m: int, p: int, sms: int, online: bool, *,
     ``n_split`` (1..``n_stages``) asks for that many splits instead, the
     counterpart of the TPU wrapper's ``block_i`` / ``block_j`` for tuning
     sweeps: each split takes ``ceil(n_stages / n_split)`` stages and the
-    count is trimmed so that none is empty; the cap is not applied."""
-    ks = -(-(p + 2) // 8)
+    count is trimmed so that none is empty; the cap is not applied.
+    ``precision`` sets the k-step and the b_aug stage's size."""
+    _check_precision(precision)
+    ks = -(-(p + 2) // _K_STEP[precision])
     n_stages = -(-m // _STAGE_CENTERS)
     q_blocks = -(-n // _ROWS)
     if n_split is None:
@@ -158,14 +251,14 @@ def launch_plan(n: int, m: int, p: int, sms: int, online: bool, *,
     sps = -(-n_stages // n_split)
     n_split = -(-n_stages // sps)
     prologue_blocks = -(-n_stages * _STAGE_CENTERS // _PROLOGUE_THREADS)
-    sizes = (n_stages * _STAGE_CENTERS * ks * 16, prologue_blocks,
+    sizes = (n_stages * _stage_floats(ks, precision), prologue_blocks,
              n_split * n, n_split * n if online else 0, q_blocks, 1)
     offsets, at = [], 0
     for s in sizes:
         offsets.append(at)
         at += -(-s // 4) * 4
     return LaunchPlan(ks, n_stages, sps, n_split, q_blocks, prologue_blocks,
-                      tuple(offsets), at)
+                      tuple(offsets), at, precision)
 
 
 @functools.lru_cache(maxsize=None)
@@ -175,7 +268,7 @@ def _library():
     fn = load_library("mixture_logsumexp").mixture_logsumexp_f32
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.restype = ci
-    fn.argtypes = [vp] * 10 + [ci] * 9 + [vp]
+    fn.argtypes = [vp] * 10 + [ci] * 11 + [vp]
     return fn
 
 
@@ -184,16 +277,18 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _launch(a, b, log_w, mode: str, *, n_split: int | None = None):
+def _launch(a, b, log_w, mode: str, *, precision: str,
+            n_split: int | None = None):
     """One call of the kernel on the current stream: the prologue, then the
     static and/or online partial kernel (csrc ``mode`` 0 static, 1 online,
-    2 auto). The workspace is one torch.empty; nothing syncs the host."""
+    2 auto) of the scheme ``precision`` names. The workspace is one
+    torch.empty; nothing syncs the host."""
     n, p = a.shape
     m = b.shape[0]
     dev = a.device
     online = mode != "static"
     plan = launch_plan(n, m, p, _sm_count(dev.index), online,
-                       n_split=n_split)
+                       n_split=n_split, precision=precision)
     ws = torch.empty((plan.ws_floats,), dtype=torch.float32, device=dev)
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     base = ws.data_ptr()
@@ -201,20 +296,30 @@ def _launch(a, b, log_w, mode: str, *, n_split: int | None = None):
         base + 4 * o for o in plan.offsets)
     args = (a.data_ptr(), b.data_ptr(), log_w.data_ptr(), bfrag, lwmax,
             pmax if online else psum, psum, arrivals, flag, out.data_ptr(),
-            n, m, p, plan.ks, plan.n_stages, plan.stages_per_split,
+            n, m, p, plan.ks, plan.stage_floats // 4, plan.n_stages,
+            plan.stages_per_split,
             plan.n_split, plan.prologue_blocks, _CSRC_MODE[mode],
+            _CSRC_SCHEME[precision],
             torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):   # the launches go to the current device
         err = _library()(*args)
     if err != 0:
         raise RuntimeError(
             f"mixture_logsumexp kernel launch failed: cudaError {err} "
-            f"(n={n}, m={m}, p={p}, plan={plan[:6]})"
+            f"(n={n}, m={m}, p={p}, precision={precision}, "
+            f"plan={plan[:6]})"
         )
     # partial-kernel launches; auto's online pass counts though it may
     # return at once
-    mixture_logsumexp.launches += 2 if mode == "auto" else 1
+    count_launches(2 if mode == "auto" else 1, precision)
     return out
+
+
+def count_launches(k: int, precision: str):
+    """Add ``k`` partial-kernel launches of scheme ``precision`` to the
+    counts (a replayed graph adds what it holds)."""
+    mixture_logsumexp.launches += k
+    mixture_logsumexp.launches_by_precision[precision] += k
 
 
 def _check_cuda_inputs(a, b, log_w):
@@ -246,28 +351,38 @@ def _check_cuda_inputs(a, b, log_w):
 
 
 def mixture_logsumexp(a, b, log_w, *, mode: str = "auto",
+                      precision: str = "highest",
                       n_split: int | None = None):
     """out[i] = logsumexp_j(log_w[j] - |a_i - b_j|^2 / 2), [n].
 
     a: [n, p] scaled queries; b: [m, p] scaled centers; log_w: [m]. CUDA
     tensors (float32, contiguous, any p >= 1) launch the hand-written
-    kernel, which forms the logits in 3xTF32 on tensor cores (the TPU's
-    precision "high"); every value of the config's ``weight_precision``
-    runs that path. CPU tensors run :func:`mixture_logsumexp_reference`.
-    On CUDA no mode syncs the host. ``n_split`` overrides the launch
-    plan's center split (:func:`launch_plan`; None keeps the plan's own)
-    and is validated on both devices; the plain version has no split."""
+    kernel of the scheme ``precision`` names (the TPU wrapper's values and
+    default): "high" 3xTF32 on tensor cores, "default" one BF16 pass,
+    "highest" FP32 FMAs; on CUDA no mode syncs the host. CPU tensors run
+    :func:`mixture_logsumexp_reference` at its own precision whatever
+    ``precision`` says: the caller asked for the CPU, where JAX's
+    ``log_kernel_mixture_density`` takes its XLA path and ignores the
+    value too (``abcsmc_tpu/ops/weights.py``), so CPU runs are the same
+    under all three. ``precision`` is validated on both devices.
+    ``n_split`` overrides the launch plan's center split
+    (:func:`launch_plan`; None keeps the plan's own) and is validated on
+    both devices; the plain version has no split."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    _check_precision(precision)
     if n_split is not None:
         _check_split(n_split, b.shape[0])
     if not a.is_cuda:
         return mixture_logsumexp_reference(a, b, log_w, mode=mode)
     _check_cuda_inputs(a, b, log_w)
-    return _launch(a, b, log_w, mode, n_split=n_split)
+    return _launch(a, b, log_w, mode, precision=precision, n_split=n_split)
 
 
 #: partial-kernel launches issued by :func:`mixture_logsumexp`: 1 per
 #: static or online call, 2 per auto call (a plain integer; callers reset
 #: it to 0 to count the launches of one main-path pass)
 mixture_logsumexp.launches = 0
+#: the same launches by scheme ("high", "default", "highest"), each a
+#: kernel of its own
+mixture_logsumexp.launches_by_precision = dict.fromkeys(PRECISIONS, 0)

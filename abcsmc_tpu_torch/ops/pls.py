@@ -240,20 +240,23 @@ def _vdv_pvalues(sq_err, seed, n_perm: int, gidx=None):
     components do as well as the PRESS-minimal count", with the signs of the
     per-row error differences randomized by :func:`vdv_signs`. ``seed`` is
     the uint32 sign-stream seed; ``gidx`` the global row indices of the
-    validation rows (default 0..nv-1)."""
+    validation rows (default 0..nv-1). The observed statistic is the
+    all-ones row of the same product as the sign rows, so a sign row of
+    all ones (or all minus ones) ties it exactly and counts, as the
+    statistic's definition and the JAX package's count have it."""
     nv, _, p = sq_err.shape
     press = sq_err.sum(dim=0)                                # [A, p]
     best = torch.argmin(press, dim=0)                        # [p]
     best_err = torch.gather(sq_err, 1,
                             best[None, None, :].expand(nv, 1, p))
     d = sq_err - best_err                                    # [nv, A, p]
-    t_obs = d.mean(dim=0)                                    # [A, p]
     if gidx is None:
         gidx = torch.arange(nv, device=sq_err.device)
     signs = vdv_signs(seed, n_perm, gidx, sq_err.dtype)      # [K, nv]
-    t_perm = (signs @ d.reshape(nv, -1)).reshape(n_perm, *d.shape[1:]) / nv
+    rows = torch.cat([torch.ones_like(signs[:1]), signs])    # [1 + K, nv]
+    t = (rows @ d.reshape(nv, -1)).reshape(n_perm + 1, *d.shape[1:]) / nv
     del d
-    return (t_perm.abs() >= t_obs.abs()[None]).to(sq_err.dtype).mean(dim=0)
+    return (t[1:].abs() >= t[0].abs()[None]).to(sq_err.dtype).mean(dim=0)
 
 
 def optimal_num_components_vdv(model: PLSModel, x_val, y_val, seed,

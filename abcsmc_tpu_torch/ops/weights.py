@@ -44,12 +44,17 @@ def _prep_scaled(params, prev_params, prev_doubled_variance):
 
 
 def log_kernel_mixture_density(params, prev_params, prev_log_weights,
-                               prev_doubled_variance):
-    """log den_i = logsumexp_j [log w'_j - 0.5 sum_p d_ijp^2 / dv_p] + C."""
+                               prev_doubled_variance,
+                               precision: str = "highest"):
+    """log den_i = logsumexp_j [log w'_j - 0.5 sum_p d_ijp^2 / dv_p] + C.
+
+    ``precision`` is the kernel's dot scheme on a CUDA tensor (JAX's
+    default, "highest", as the host brain runs it); a CPU tensor ignores
+    it, as JAX's XLA path does."""
     a, b, log_norm = _prep_scaled(params, prev_params, prev_doubled_variance)
     lw = torch.as_tensor(prev_log_weights).to(a)
     return kernels.mixture_logsumexp(
-        a.contiguous(), b.contiguous(), lw.contiguous()
+        a.contiguous(), b.contiguous(), lw.contiguous(), precision=precision
     ) + log_norm
 
 

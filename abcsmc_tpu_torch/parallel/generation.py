@@ -325,9 +325,12 @@ class Generation:
     ``noise_type``, ``max_retries`` (the bound of the MULTIVARIATE
     rejection loop) and ``box_cox`` (PLS filter only, as in the host
     ranking) are the config keys of the same names. ``weight_precision``
-    is accepted and ignored: it selects among the TPU kernel's dot schemes,
-    and the weight kernel here has one (3xTF32 with an FP32 accumulator),
-    so every value runs the same path. ``max_pls_components`` (None: no
+    is the weight kernel's dot scheme on every shard ("high" 3xTF32,
+    "default" one BF16 pass, "highest" FP32 FMAs; each its own program of
+    ``csrc/mixture_logsumexp.cu``, as each value is its own dot on the
+    TPU); a constant of the step, so a captured graph holds that scheme's
+    kernel and no value adds a host sync. On the CPU the value changes
+    nothing, as in JAX off the TPU. ``max_pls_components`` (None: no
     cap) caps the PLS components below min(n_train - 1, metrics);
     ``vdv_permutations`` is the number of sign rows of the van der Voet
     test and ``vdv_max_rows`` the rows of its held-out window (the last
@@ -1286,7 +1289,7 @@ class Generation:
             log_num = self.par_set.prior_log_pdf(rows).to(dt)
             log_den = weights_mod.log_kernel_mixture_density(
                 rows, prev_par.to(dev), torch.log(prev_w.to(dev, dt)),
-                prev_dv.to(dev),
+                prev_dv.to(dev), precision=self.weight_precision,
             )
             parts.append(log_num - log_den)
         return mesh.all_gather_cat(parts)[:keep]
@@ -1619,6 +1622,7 @@ class Generation:
         from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
 
         before = mixture_logsumexp.launches
+        by_precision = dict(mixture_logsumexp.launches_by_precision)
         torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()
         # the MULTIVARIATE count stays on the device: read after a replay
@@ -1631,6 +1635,7 @@ class Generation:
         # the wrapper counted the launches it recorded; none ran yet
         held = mixture_logsumexp.launches - before
         mixture_logsumexp.launches = before
+        mixture_logsumexp.launches_by_precision.update(by_precision)
         self.graph_captures += 1
         return graph, result, held
 
@@ -1690,7 +1695,7 @@ class Generation:
         step's count is read here, once per set, and a set whose rows were
         not all accepted in the graph's block is finished eagerly in place
         (:meth:`_finish_rejection`) before the caller draws the next set."""
-        from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
+        from abcsmc_tpu_torch.ops.kernels import count_launches
 
         events = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
@@ -1709,7 +1714,7 @@ class Generation:
         events[1].record()
         self.dispatches += 1
         self.graph_replays += 1
-        mixture_logsumexp.launches += cap.kernel_launches
+        count_launches(cap.kernel_launches, self.weight_precision)
         self._note_set("replay", events, cap.result)
         return cap.result
 

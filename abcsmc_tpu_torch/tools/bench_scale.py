@@ -12,9 +12,10 @@ forces the resident row passes, a positive value chunked passes of that
 block, and omitting it leaves the step's auto rule (from bytes per row and
 the card's memory). ``--max-comp`` caps the PLS components. ``--sim`` adds
 a line with the linear-Gaussian simulator inside the step.
-``--precision`` is passed as ``weight_precision``, which the port accepts
-and ignores (one 3xTF32 kernel). The JAX tool's ``--phases`` (rank, free,
-propose) is the step's own ``propose_split`` rule here.
+``--precision`` is passed as ``weight_precision``: the weight kernel's dot
+scheme ("high" 3xTF32, "default" one BF16 pass, "highest" FP32 FMAs).
+The JAX tool's ``--phases`` (rank, free, propose) is the step's own
+``propose_split`` rule here.
 
 One JSON line per measurement: seconds per step (CUDA events, mean over
 ``--reps`` steps after a warm-up), particles/s, ``ncomp_used`` and the peak

@@ -12,9 +12,10 @@ One JSON line per measurement:
    components within T = 10 and 30 log-units of each query's best logit,
    and the mean best-minus-worst spread (analytically about P plus the
    log-weight spread, so block-skipping truncation prunes nothing);
-2. the hand-written kernel at K x K x 6 for each ``--k`` and mode: CUDA-event
-   ms, logits/s, its bound (``bench_kernel.kernel_bound_ms``) and the
-   share of it reached, the launch plan's split, the plain version's ms
+2. the hand-written kernel (3xTF32, "high") at K x K x 6 for each ``--k``
+   and mode: CUDA-event ms, logits/s, its bound
+   (``bench_kernel.kernel_bound_ms``) and the share of it reached, the
+   launch plan's split, the plain version's ms
    (auto, K up to :data:`PLAIN_MAX_K`; no single PyTorch call computes
    the function, so ``library_ms`` is null) and the max abs error against
    the float64 plain version on ``--sample-rows`` query rows (held to
@@ -22,8 +23,7 @@ One JSON line per measurement:
 3. one ``--n`` x 6 x 13 generation with ``--keep`` survivors, the simulator
    excluded (``step_precomputed``) and included (``step``), the step's
    draws inside the timed call as in the JAX step, at ``weight_precision``
-   "highest" and "high". The port's kernel has one dot scheme (3xTF32) for
-   every value, so both lines time one program.
+   "highest" and "high": the weight kernel's FP32 FMA and 3xTF32 programs.
 
 The pick and the normals of the state come from the harness's generator,
 not JAX's keys: the fractions agree with the JAX tool's in law, and exactly
@@ -84,7 +84,8 @@ def truncation_stats(prev, dv, w, queries, ts=(10.0, 30.0)) -> dict:
 def kernel_point(st: _common.Study, k: int, mode: str, reps: int,
                  rows: int) -> dict:
     """The kernel at k x k x P on the JAX tool's inputs: centers uniform on
-    [0.3, 0.7]^P as their own queries, equal weights, dv 0.02."""
+    [0.3, 0.7]^P as their own queries, equal weights, dv 0.02; the 3xTF32
+    scheme ("high", the config default)."""
     g, dev = st.generator, st.device
     prev = 0.3 + 0.4 * torch.rand((k, P), generator=g, device=dev)
     dv = torch.full((P,), 0.02, device=dev)
@@ -92,9 +93,10 @@ def kernel_point(st: _common.Study, k: int, mode: str, reps: int,
     a, b = a.contiguous(), b.contiguous()
     lw = torch.full((k,), -math.log(k), device=dev)
     before = kernels.mixture_logsumexp.launches
-    ms = st.ms(lambda: kernels.mixture_logsumexp(a, b, lw, mode=mode), reps)
+    ms = st.ms(lambda: kernels.mixture_logsumexp(a, b, lw, mode=mode,
+                                                 precision="high"), reps)
     launches = kernels.mixture_logsumexp.launches - before
-    got = kernels.mixture_logsumexp(a, b, lw, mode=mode)
+    got = kernels.mixture_logsumexp(a, b, lw, mode=mode, precision="high")
     err = sampled_error_f64(a, b, lw, got, rows, mode=mode)
     del got
     plain_ms = None
@@ -108,7 +110,7 @@ def kernel_point(st: _common.Study, k: int, mode: str, reps: int,
            "n_split": None, "bound_ms": None, "bound_by": None,
            "bound_share": None, "logits_per_sec": None}
     if st.on_card:
-        bound = kernel_bound_ms(k, k, P, st.device)
+        bound = kernel_bound_ms(k, k, P, "high", device=st.device)
         plan = kernels.launch_plan(k, k, P, bound["sms"], mode != "static")
         row.update(n_split=plan.n_split, bound_ms=bound["bound_ms"],
                    bound_by=bound["bound_by"],
@@ -154,9 +156,7 @@ def generation_points(st: _common.Study, n: int, keep: int, reps: int):
                           f"weight_precision={prec}), 1 device(s)",
                 "value": ms, "unit": "ms", "n": n, "keep": keep,
                 "particles_per_sec": None if ms is None else n / (ms * 1e-3),
-                "ncomp_used": ncomp, "weight_precision": prec,
-                "note": "every weight_precision runs the one 3xTF32 kernel: "
-                        "the two precisions time the same program"})
+                "ncomp_used": ncomp, "weight_precision": prec})
 
 
 def main(argv=None) -> int:

@@ -82,9 +82,9 @@ def weight_stage_by_shape(counter):
     orig = weights.log_kernel_mixture_density
     tally = {"shape_flops": 0, "seen_flops": 0}
 
-    def counted(params, prev_params, *rest):
+    def counted(params, prev_params, *rest, **kw):
         before = counter.get_total_flops()
-        out = orig(params, prev_params, *rest)
+        out = orig(params, prev_params, *rest, **kw)
         tally["seen_flops"] += counter.get_total_flops() - before
         n, p = params.shape
         tally["shape_flops"] += 2 * n * prev_params.shape[0] * (p + 2)

@@ -1,25 +1,29 @@
-"""Tuning sweep of the weight kernel: accuracy of each mode against float64,
-and the time of each center split the launch plan could choose (port of
-tools/sweep_weight_kernel.py).
+"""Tuning sweep of the weight kernel: accuracy of each mode and dot scheme
+against float64, and the time of each center split the launch plan could
+choose (port of tools/sweep_weight_kernel.py).
 
     python -m abcsmc_tpu_torch.tools.sweep_weight_kernel
         [--k-accuracy 50000] [--k-sweep 200000] [--reps 3]
 
 The TPU tool swept Pallas block sizes (``block_i`` x ``block_j``) and the
 three dot precisions. Here the tiles are compile-time constants of
-``csrc/mixture_logsumexp.cu`` and every precision runs one 3xTF32 scheme;
-what a call can still choose is how many splits the center axis is cut
-into (``n_split`` of ``ops.kernels.mixture_logsumexp``). So, one JSON line
-each:
+``csrc/mixture_logsumexp.cu``; what a call can still choose is the dot
+scheme (``precision``: "highest" FP32 FMAs, "high" 3xTF32, "default" one
+BF16 pass, each its own program) and how many splits the center axis is
+cut into (``n_split`` of ``ops.kernels.mixture_logsumexp``). So, one JSON
+line each, for each scheme:
 
 1. at ``--k-accuracy``^2 x 6, the max abs error of each mode against the
-   float64 plain version on every query row (held to 2e-4 nats);
+   float64 plain version on every query row (held to 2e-4 nats; "default"
+   rounds its operands to bfloat16 and is held instead to 2e-4 of its own
+   plain version, ``max_abs_err_own``, its float64 error reported);
 2. at ``--k-sweep``^2 x 6, for each mode, CUDA-event ms at the plan's own
    split, at 1, 2, 4, ... splits and at one split per 64-center stage,
-   each with its error against float64 on ``--sample-rows`` rows. A split
-   longer than the plan's cap (2,048 stages, 131,072 centers) may leave
-   2e-4 nats: it is reported (``within_cap`` false), not refused; the
-   splits within the cap are held to 2e-4.
+   each with its error against float64 (and, for "default", against its
+   own plain version) on ``--sample-rows`` rows. A split longer than the
+   plan's cap (2,048 stages, 131,072 centers) may leave 2e-4 nats: it is
+   reported (``within_cap`` false), not refused; the splits within the
+   cap are held to 2e-4.
 """
 
 from __future__ import annotations
@@ -29,7 +33,9 @@ import sys
 
 import torch
 
-from abcsmc_tpu_torch.bench_kernel import sampled_error_f64
+from abcsmc_tpu_torch.bench_kernel import (
+    sampled_error_f64, sampled_error_own,
+)
 from abcsmc_tpu_torch.ops import kernels
 from abcsmc_tpu_torch.ops.weights import _prep_scaled
 from abcsmc_tpu_torch.tools import _common
@@ -59,6 +65,18 @@ def split_points(m: int) -> list:
     return pts + [n_stages]
 
 
+def errors(a, b, lw, got, rows, mode, prec, on_card):
+    """(error against float64, error against the scheme's own plain
+    version or None, the one held to 2e-4): "default" on the card is held
+    to its own plain version, the rest to float64 (a CPU call runs the
+    plain version whatever the scheme)."""
+    f64 = sampled_error_f64(a, b, lw, got, rows, mode=mode)
+    if prec != "default" or not on_card:
+        return f64, None, f64
+    own = sampled_error_own(a, b, lw, got, rows, mode=mode, precision=prec)
+    return f64, own, own
+
+
 def main(argv=None) -> int:
     ap = _common.parser(__doc__)
     ap.add_argument("--k-accuracy", type=int, default=50_000)
@@ -74,51 +92,56 @@ def main(argv=None) -> int:
 
     k = args.k_accuracy
     a, b, lw = inputs(k, st)
-    for mode in args.modes:
-        got = kernels.mixture_logsumexp(a, b, lw, mode=mode)
-        err = sampled_error_f64(a, b, lw, got, k, mode=mode)
-        st.emit({"metric": f"{mode} max |dlog| vs float64 plain, "
-                           f"{_common.label(k)}^2",
-                 "value": err, "unit": "nats", "shape": [k, k, P],
-                 "precision": "3xTF32 (every weight_precision)"})
-        _common.check(err <= _common.TOL,
-                      f"{mode} at {k}^2 x {P}: {err} nats from float64")
+    for prec in kernels.PRECISIONS:
+        for mode in args.modes:
+            got = kernels.mixture_logsumexp(a, b, lw, mode=mode,
+                                            precision=prec)
+            f64, own, held = errors(a, b, lw, got, k, mode, prec,
+                                    st.on_card)
+            st.emit({"metric": f"{mode}/{prec} max |dlog| vs float64 plain, "
+                               f"{_common.label(k)}^2",
+                     "value": f64, "unit": "nats", "shape": [k, k, P],
+                     "precision": prec, "max_abs_err_own": own})
+            _common.check(held <= _common.TOL,
+                          f"{mode}/{prec} at {k}^2 x {P}: {held} nats")
     del a, b, lw
 
     k = args.k_sweep
     a, b, lw = inputs(k, st)
     sms = (torch.cuda.get_device_properties(st.device).multi_processor_count
            if st.on_card else None)
-    for mode in args.modes:
-        online = mode != "static"
-        for ask in split_points(k):
-            fn = lambda: kernels.mixture_logsumexp(  # noqa: E731
-                a, b, lw, mode=mode, n_split=ask)
-            ms = st.ms(fn, args.reps)
-            err = sampled_error_f64(a, b, lw, fn(), args.sample_rows,
-                                    mode=mode)
-            plan = (kernels.launch_plan(k, k, P, sms or 1, online,
-                                        n_split=ask)
-                    if sms or ask else None)
-            within = (plan.stages_per_split <= kernels._MAX_SPLIT_STAGES
-                      if plan else None)
-            st.emit({
-                "metric": f"{_common.label(k)}^2 {mode} "
-                          f"n_split={'plan' if ask is None else ask}",
-                "value": ms, "unit": "ms", "shape": [k, k, P],
-                "mode": mode, "n_split_asked": ask,
-                "n_split": plan.n_split if plan else None,
-                "centers_per_split": (plan.stages_per_split
-                                      * kernels._STAGE_CENTERS
-                                      if plan else None),
-                "within_cap": within,
-                "max_abs_err_f64_sampled": err})
-            if within is not False:
-                _common.check(err <= _common.TOL,
-                              f"{mode} n_split={ask} at {k}^2 x {P}: "
-                              f"{err} nats from float64")
-            if st.on_card:
-                torch.cuda.empty_cache()
+    for prec in kernels.PRECISIONS:
+        for mode in args.modes:
+            online = mode != "static"
+            for ask in split_points(k):
+                fn = lambda: kernels.mixture_logsumexp(  # noqa: E731
+                    a, b, lw, mode=mode, precision=prec, n_split=ask)
+                ms = st.ms(fn, args.reps)
+                f64, own, held = errors(a, b, lw, fn(), args.sample_rows,
+                                        mode, prec, st.on_card)
+                plan = (kernels.launch_plan(k, k, P, sms or 1, online,
+                                            n_split=ask, precision=prec)
+                        if sms or ask else None)
+                within = (plan.stages_per_split <= kernels._MAX_SPLIT_STAGES
+                          if plan else None)
+                st.emit({
+                    "metric": f"{_common.label(k)}^2 {mode}/{prec} "
+                              f"n_split={'plan' if ask is None else ask}",
+                    "value": ms, "unit": "ms", "shape": [k, k, P],
+                    "mode": mode, "precision": prec, "n_split_asked": ask,
+                    "n_split": plan.n_split if plan else None,
+                    "centers_per_split": (plan.stages_per_split
+                                          * kernels._STAGE_CENTERS
+                                          if plan else None),
+                    "within_cap": within,
+                    "max_abs_err_f64_sampled": f64,
+                    "max_abs_err_own_sampled": own})
+                if within is not False:
+                    _common.check(held <= _common.TOL,
+                                  f"{mode}/{prec} n_split={ask} at {k}^2 x "
+                                  f"{P}: {held} nats")
+                if st.on_card:
+                    torch.cuda.empty_cache()
     return 0
 
 

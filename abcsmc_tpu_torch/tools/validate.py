@@ -69,7 +69,7 @@ def kernel_line(st: _common.Study, rng, n: int, m: int, p: int, reps: int):
     a, b, log_norm = _prep_scaled(params, prev, dv)
     a, b = a.contiguous(), b.contiguous()
     del params, prev
-    got = mixture_logsumexp(a, b, lw) + log_norm
+    got = mixture_logsumexp(a, b, lw, precision="high") + log_norm
     want = mixture_logsumexp_reference(a, b, lw) + log_norm
     diff = (got - want).abs()
     abs_err = float(diff.max())
@@ -79,14 +79,15 @@ def kernel_line(st: _common.Study, rng, n: int, m: int, p: int, reps: int):
                   f"kernel at {n}x{m}x{p}: max abs err {abs_err}")
     _common.check(rel_err < REL_TOL,
                   f"kernel at {n}x{m}x{p}: max rel err {rel_err}")
-    ms = st.ms(lambda: mixture_logsumexp(a, b, lw), reps)
+    ms = st.ms(lambda: mixture_logsumexp(a, b, lw, precision="high"), reps)
     plain_ms = st.ms(lambda: mixture_logsumexp_reference(a, b, lw), reps)
     row = {"metric": f"mixture_logsumexp {n}x{m}x{p}", "shape": [n, m, p],
            "max_abs_err": abs_err, "max_rel_err": rel_err, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": None, "bound_by": None,
            "bound_share": None}
     if st.on_card:
-        bound = kernel_bound_ms(n, m, p, st.device.index or 0)
+        bound = kernel_bound_ms(n, m, p, "high",
+                                device=st.device.index or 0)
         row.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
                    bound_share=bound["bound_ms"] / ms,
                    speedup=plain_ms / ms)

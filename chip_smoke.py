@@ -6,7 +6,8 @@
 Phases (each prints one JSON line; any failure raises and exits nonzero):
 
 1. build   - compile csrc/mixture_logsumexp.cu with nvcc (sm_90a), timed;
-2. kernel  - the kernel against its plain PyTorch version on the card, f32,
+2. kernel  - the kernel (its 3xTF32 scheme, "high", the config default)
+             against its plain PyTorch version on the card, f32,
              at 2,048 x 2,048 x 16, 10,000^2 x 6, 50,000 x 50,000 x 6 and
              52,429 x 52,429 x 2 (the large main paths' shapes, all timed),
              at every shape phases 15 and 16 give it, at every shape
@@ -15,11 +16,18 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
              128-410 rows, p = 2-4, none a multiple of a tile), at every
              per-shard shape of phase 13's mesh fits, 4,096^2 x
              80, 2,048^2 x 1 and a ragged
-             37 x 1,000 x 1, in the static, online and auto modes; a hostile
-             20,000^2 x 16 case (coordinates up to 6 kernel sd) against the
-             plain version in float64; the underflow case; true -inf
-             weights; one auto call under torch.cuda.set_sync_debug_mode
-             ("error"); max abs diff <= 2e-4 nats;
+             37 x 1,000 x 1, in the static, online and auto modes (the
+             BF16 "default" and FP32 FMA "highest" schemes there too, auto,
+             each against its own plain version); a hostile 20,000^2 x 16
+             case (coordinates up to 6 kernel sd) against the plain version
+             in float64 ("high" and "highest"); the underflow case; true
+             -inf weights (every scheme); one auto call of each scheme
+             under torch.cuda.set_sync_debug_mode("error"); then every
+             scheme at those four large shapes and 200,000 x 50,000 x 13 in
+             every mode against its own plain version, auto timed beside
+             its plain version and its bound, its error against float64
+             on 4,096 rows ("default" at least 10x "high"'s at 50,000^2);
+             max abs diff <= 2e-4 nats;
 3. dengue  - examples/dengue_surrogate.json through
              AbcSmc(cfg, device="cuda").run_device(), cut to 3 sets: complete
              SQLite sets of 2,048 ranked rows, ncomp_used > 1 in each, 2
@@ -35,7 +43,8 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
              call, posterior closer to the truth than the prior; the weights
              of every set after set 0, rebuilt by a brain pass on a copy of
              the store, held against the plain version on the same inputs
-             (log-weights within 2 x 2e-4 nats of each other);
+             (log-weights within 2 x 2e-4 nats of each other); the brain's
+             launches all of the "highest" scheme (JAX's default there);
 6. resume  - dengue_surrogate: ``--process`` then ``--simulate -n 51200``
              (set 0 half done) as subprocesses, then
              AbcSmc(cfg, device="cuda").run_device() finishes 2 sets with 2
@@ -168,16 +177,27 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
              against resident; its launches, mostly comparisons and
              timings, are printed apart and not counted).
 
+17. precision - examples/dengue_surrogate.json at its widths, 3 sets, in
+             memory, under each weight_precision ("highest", "high",
+             "default"): each run launches its own scheme only, 4 launches,
+             ncomp_used > 1, posterior closer to the truth than the prior,
+             per-set ms, each set's kernel call against its scheme's plain
+             version; on one set's inputs the weight stage's log-densities
+             of each scheme as the max abs difference from "highest".
+
 ``python3 chip_smoke.py --only fused,surfaces`` runs the build, the named
 phases (dengue too where surfaces is named) and the closing lines alone;
 ``--only host_cli,bridge`` puts the bridged wall beside the host engine's
-of the same call.
+of the same call; ``--only precision`` runs the build, the kernel phase
+and the schemes' fits.
 
-Each phase prints its wall time; the host phases also print the engine's
-timings split (read/rank/weight, propose, enqueue, claim, simulate,
-writeback). Then the kernel summary line (launches summed over every
-phase's main path) and, last, the device line. There is no CPU
-path: without CUDA (or outside a checkout) it exits nonzero and prints no
+Each phase prints its wall time (the ``walls`` line gathers them and the
+script's); the host phases also print the engine's timings split
+(read/rank/weight, propose, enqueue, claim, simulate, writeback). Then the
+kernel summary line: one entry per dot scheme ("high" 3xTF32, "default"
+BF16, "highest" FP32 FMA), each with its launches summed over every
+phase's main path, and, last, the device line. There is no CPU path:
+without CUDA (or outside a checkout) it exits nonzero and prints no
 result.
 """
 
@@ -204,9 +224,17 @@ SMOKE_DIR = REPO / "build" / "smoke"  # the example phases' stores
 SIR_1M = (1_048_576, 52_429)          # particles, survivors (5 %) of sir_1m
 SWEEP_SIDE = 320                      # the PSEUDO sweep is SWEEP_SIDE^2 rows
 EXTRA_SHAPES = ((4096, 4096, 80), (2048, 2048, 1), (37, 1000, 1))
+# every dot scheme is held and timed at these, beside its own plain version
+SCHEME_SHAPES = KERNEL_SHAPES + ((200_000, 50_000, 13),)
+PRECISIONS = ("high", "default", "highest")
+# the kernels line's entry of each scheme
+KERNEL_NAMES = {"high": "mixture_logsumexp",
+                "default": "mixture_logsumexp_bf16",
+                "highest": "mixture_logsumexp_f32"}
+PRECISION_SETS = 3  # the precision phase cuts dengue_surrogate's sets
 # the mesh phase's fits: example -> (shards, sets; None = as shipped)
 MESH_RUNS = {"dengue_surrogate": (3, 3), "sir": (2, None), "dice": (2, None)}
-HELD = set()        # every (n, m, p) the kernel phase held against plain
+HELD = set()        # every (n, m, p, precision) held against plain
 
 
 def emit(obj):
@@ -248,12 +276,18 @@ def kernel_inputs(n, m, p, seed):
     return a.contiguous(), b.contiguous(), lw
 
 
-def kernel_bound_ms(n, m, p):
+def kernel_bound_ms(n, m, p, precision="high"):
     """``bench_kernel.kernel_bound_ms``: the least time the card could
-    take for one call at n x m x p, and what bounds it."""
+    take for one call at n x m x p in the scheme ``precision``, and what
+    bounds it."""
     from abcsmc_tpu_torch.bench_kernel import kernel_bound_ms as bound
 
-    return bound(n, m, p)
+    return bound(n, m, p, precision)
+
+
+def with_high(shapes):
+    """(n, m, p) shapes as HELD keys of the config default's scheme."""
+    return {(*s, "high") for s in shapes}
 
 
 def example_kernel_shapes():
@@ -296,12 +330,15 @@ def phase_kernel():
         mixture_logsumexp, mixture_logsumexp_reference,
     )
 
+    # the config default's scheme (3xTF32) in every mode at every shape a
+    # main path gives the kernel
+    hi = dict(precision="high")
     errs, times = {}, {}
     for n, m, p in KERNEL_SHAPES:
         a, b, lw = kernel_inputs(n, m, p, seed=n + p)
-        HELD.add((n, m, p))
+        HELD.add((n, m, p, "high"))
         for mode in ("static", "online", "auto"):
-            got = mixture_logsumexp(a, b, lw, mode=mode)
+            got = mixture_logsumexp(a, b, lw, mode=mode, **hi)
             torch.cuda.synchronize()
             ref = mixture_logsumexp_reference(a, b, lw, mode=mode)
             torch.cuda.synchronize()
@@ -314,14 +351,16 @@ def phase_kernel():
         for mode in ("auto", "static", "online"):
             sfx = "" if mode == "auto" else f"_{mode}"
             shape["ms" + sfx] = cuda_ms(
-                lambda: mixture_logsumexp(a, b, lw, mode=mode), reps)
+                lambda: mixture_logsumexp(a, b, lw, mode=mode, **hi), reps)
             shape["plain_ms" + sfx] = cuda_ms(
                 lambda: mixture_logsumexp_reference(a, b, lw, mode=mode),
                 reps)
         del a, b, lw
 
     # the shipped examples' shapes (small, no multiple of a tile); any p
-    # (the templates of the first port stopped at 64), tiny and ragged
+    # (the templates of the first port stopped at 64), tiny and ragged;
+    # the other two schemes in auto at each too (a brain pass that
+    # rebuilds a resumed run's weights runs "highest" at such shapes)
     example_shapes = example_kernel_shapes()
     check(example_shapes, "no example shapes")
     mesh_shapes = sorted(set().union(*map(mesh_kernel_shapes, MESH_RUNS)))
@@ -329,18 +368,25 @@ def phase_kernel():
     for n, m, p in (*example_shapes, *mesh_shapes, *bench_shapes,
                     *bridge_kernel_shapes(), *EXTRA_SHAPES):
         a, b, lw = kernel_inputs(n, m, p, seed=n + m + p)
-        for mode in ("static", "online", "auto"):
-            got = mixture_logsumexp(a, b, lw, mode=mode)
-            torch.cuda.synchronize()
-            ref = mixture_logsumexp_reference(a, b, lw, mode=mode)
-            err = float((got - ref).abs().max())
-            errs[f"{n}x{m}x{p}/{mode}"] = err
-            check(err <= TOL, f"{mode} at {n}x{m}x{p}: max abs err {err}")
-        HELD.add((n, m, p))
+        for prec in PRECISIONS:
+            for mode in ("static", "online", "auto"):
+                if prec != "high" and mode != "auto":
+                    continue
+                got = mixture_logsumexp(a, b, lw, mode=mode, precision=prec)
+                torch.cuda.synchronize()
+                ref = mixture_logsumexp_reference(a, b, lw, mode=mode,
+                                                  precision=prec)
+                err = float((got - ref).abs().max())
+                key = f"{n}x{m}x{p}/{mode}"
+                errs[key if prec == "high" else f"{key}/{prec}"] = err
+                check(err <= TOL, f"{mode}/{prec} at {n}x{m}x{p}: max abs "
+                      f"err {err}")
+            HELD.add((n, m, p, prec))
 
     # hostile: coordinates up to 6 kernel sd, where the expansion
     # a.b - |a|^2/2 - |b|^2/2 cancels most; each query within ~1 sd of its
-    # parent center, as in an SMC state; held to float64
+    # parent center, as in an SMC state; held to float64 (both
+    # full-precision schemes)
     import numpy as np
 
     rng = np.random.default_rng(5)
@@ -353,17 +399,22 @@ def phase_kernel():
            for x in (ah, bh, np.log(wh / wh.sum()))]
     ref64 = mixture_logsumexp_reference(*(x.double() for x in h32),
                                         mode="online")
-    for mode in ("static", "online", "auto"):
-        got = mixture_logsumexp(*h32, mode=mode)
-        err = float((got.double() - ref64).abs().max())
-        errs[f"hostile_{n}x{m}x{p}_f64/{mode}"] = err
-        check(err <= TOL, f"hostile {mode}: max abs err vs f64 {err}")
+    for prec in ("high", "highest"):
+        for mode in ("static", "online", "auto"):
+            got = mixture_logsumexp(*h32, mode=mode, precision=prec)
+            err = float((got.double() - ref64).abs().max())
+            sfx = "" if prec == "high" else f"/{prec}"
+            errs[f"hostile_{n}x{m}x{p}_f64/{mode}{sfx}"] = err
+            check(err <= TOL, f"hostile {mode}/{prec}: max abs err vs f64 "
+                  f"{err}")
 
-    # auto decides its rerun on the device: no host sync in the call
+    # auto decides its rerun on the device: no host sync in the call, in
+    # any scheme
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        mixture_logsumexp(*h32, mode="auto")
+        for prec in PRECISIONS:
+            mixture_logsumexp(*h32, mode="auto", precision=prec)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -375,9 +426,9 @@ def phase_kernel():
     lw = torch.full((16,), math.log(1.0 / 16), device=dev)
     a = torch.cat([torch.zeros((3, 2), device=dev),
                    torch.full((1, 2), 1e4, device=dev)])
-    static = mixture_logsumexp(a, b, lw, mode="static")
-    auto = mixture_logsumexp(a, b, lw, mode="auto")
-    online = mixture_logsumexp(a, b, lw, mode="online")
+    static = mixture_logsumexp(a, b, lw, mode="static", **hi)
+    auto = mixture_logsumexp(a, b, lw, mode="auto", **hi)
+    online = mixture_logsumexp(a, b, lw, mode="online", **hi)
     ref = mixture_logsumexp_reference(a, b, lw, mode="online")
     torch.cuda.synchronize()
     check(bool(torch.isneginf(static[3])), "underflow really occurs")
@@ -390,25 +441,88 @@ def phase_kernel():
     a, b, lw = kernel_inputs(2048, 2048, 16, seed=7)
     lw = lw.clone()
     lw[1024:] = -math.inf
-    got = mixture_logsumexp(a, b, lw)
-    sub = mixture_logsumexp(a, b[:1024].contiguous(), lw[:1024].contiguous())
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()), "finite with -inf weights")
-    ierr = float((got - sub).abs().max())
-    check(ierr <= TOL, f"-inf weights: max abs err {ierr}")
-    errs["neg_inf_weights"] = ierr
+    for prec in PRECISIONS:
+        got = mixture_logsumexp(a, b, lw, precision=prec)
+        sub = mixture_logsumexp(a, b[:1024].contiguous(),
+                                lw[:1024].contiguous(), precision=prec)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "finite with -inf weights")
+        ierr = float((got - sub).abs().max())
+        check(ierr <= TOL, f"-inf weights/{prec}: max abs err {ierr}")
+        errs["neg_inf_weights" + ("" if prec == "high"
+                                  else f"/{prec}")] = ierr
+    schemes = phase_kernel_schemes(errs)
     emit({"phase": "kernel", "max_abs_err": errs, "times": times,
           "example_shapes": example_shapes, "mesh_shapes": mesh_shapes,
           "bench_shapes": bench_shapes,
           "bridge_shapes": bridge_kernel_shapes()})
-    return errs, times
+    return errs, times, schemes
+
+
+def phase_kernel_schemes(errs):
+    """Every dot scheme at SCHEME_SHAPES in each mode against its own plain
+    version (float32; "default" rounds its operands to bfloat16 as the
+    kernel does), auto timed beside its plain version and its bound, and
+    held to float64 on 4,096 sampled query rows: "default" at least 10x
+    farther from float64 than "high" at 50,000^2 x 6 (it rounds), the
+    other two within 2e-4 nats. Returns {precision: {shape: numbers}}."""
+    import torch
+
+    from abcsmc_tpu_torch.bench_kernel import sampled_error_f64
+    from abcsmc_tpu_torch.ops.kernels import (
+        mixture_logsumexp, mixture_logsumexp_reference,
+    )
+
+    out = {prec: {} for prec in PRECISIONS}
+    for n, m, p in SCHEME_SHAPES:
+        a, b, lw = kernel_inputs(n, m, p, seed=n + p)
+        key = f"{n}x{m}x{p}"
+        for prec in PRECISIONS:
+            row = out[prec][key] = {}
+            for mode in ("static", "online", "auto"):
+                got = mixture_logsumexp(a, b, lw, mode=mode, precision=prec)
+                torch.cuda.synchronize()
+                ref = mixture_logsumexp_reference(a, b, lw, mode=mode,
+                                                  precision=prec)
+                check(bool(torch.isfinite(got).all()),
+                      f"finite {mode}/{prec} {key}")
+                err = float((got - ref).abs().max())
+                errs[f"{key}/{mode}/{prec}"] = err
+                row[f"max_abs_err_own_{mode}"] = err
+                check(err <= TOL, f"{mode}/{prec} at {key}: max abs err "
+                      f"{err}")
+            del got, ref
+            HELD.add((n, m, p, prec))
+            row["max_abs_err_f64_sampled"] = sampled_error_f64(
+                a, b, lw, mixture_logsumexp(a, b, lw, precision=prec), 4096)
+            reps = 20 if n < 10_000 else 5
+            row["ms"] = cuda_ms(
+                lambda: mixture_logsumexp(a, b, lw, precision=prec), reps)
+            row["plain_ms"] = cuda_ms(
+                lambda: mixture_logsumexp_reference(a, b, lw,
+                                                    precision=prec), reps)
+            bound = kernel_bound_ms(n, m, p, prec)
+            row.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                       bound_share=bound["bound_ms"] / row["ms"],
+                       bound_terms_ms=bound["terms_ms"])
+        del a, b, lw
+        torch.cuda.empty_cache()
+    rep = f"{REPORT_SHAPE[0]}x{REPORT_SHAPE[1]}x{REPORT_SHAPE[2]}"
+    f64 = {prec: out[prec][rep]["max_abs_err_f64_sampled"]
+           for prec in PRECISIONS}
+    check(f64["high"] <= TOL and f64["highest"] <= TOL,
+          f"full-precision schemes vs float64 at {rep}: {f64}")
+    check(f64["default"] >= 10 * f64["high"],
+          f"default does not round at {rep}: {f64}")
+    emit({"phase": "kernel_schemes", "by_precision": out,
+          "f64_err_at_report_shape": f64})
+    return out
 
 
 def phase_dengue():
     import numpy as np
 
     from abcsmc_tpu_torch import AbcSmc
-    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
 
     path = REPO / "examples" / "dengue_surrogate.json"
     cfg = json.loads(path.read_text())
@@ -419,11 +533,12 @@ def phase_dengue():
     n_sets, n, keep = 3, 102_400, 2_048
     cfg["smc_iterations"] = n_sets
     db = cfg["database_filename"] = fresh_store("dengue_surrogate.sqlite")
-    mixture_logsumexp.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     run = AbcSmc(cfg, device="cuda").run_device(seed=0)
     wall = time.perf_counter() - t0
-    launches = mixture_logsumexp.launches
+    by = read_launches()
+    launches = sum(by.values())
     run.storage.close()
     rows = store_rows(db)
     check(rows == [(t, n, n, keep) for t in range(n_sets)],
@@ -442,7 +557,7 @@ def phase_dengue():
           "launches": launches, "set_ms": [e["device_ms"] for e in gens],
           "wall_s": wall, "rmse_posterior": rmse_post,
           "rmse_prior": rmse_prior})
-    return launches, run
+    return by, run
 
 
 def phase_north():
@@ -453,7 +568,6 @@ def phase_north():
     from abcsmc_tpu_torch.models.simulators import (
         make_linear_gaussian_simulator,
     )
-    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
 
     npar, nmet, n, keep, n_sets = 6, 13, 1_000_000, 50_000, 3
     truth = np.random.default_rng(42).uniform(0.2, 0.8, npar)
@@ -473,11 +587,12 @@ def phase_north():
             for j in range(nmet)
         ],
     }
-    mixture_logsumexp.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     run = AbcSmc(cfg, device="cuda", simulator=sim).run_device(seed=0)
     wall = time.perf_counter() - t0
-    launches = mixture_logsumexp.launches
+    by = read_launches()
+    launches = sum(by.values())
     gens_store = run.storage.read_generations()
     check([(g.size, len(g.predictive_prior_indices()))
            for g in gens_store] == [(n, keep)] * n_sets,
@@ -494,7 +609,113 @@ def phase_north():
     emit({"phase": "north_star_1m", "ncomp": ncomp, "launches": launches,
           "set_ms": [e["device_ms"] for e in gens], "wall_s": wall,
           "rmse_posterior": rmse_post, "rmse_prior": rmse_prior})
-    return launches
+    return by
+
+
+def phase_precision():
+    """dengue_surrogate as shipped (102,400 x 16 x 100, keep 2,048), its
+    sets cut to PRECISION_SETS, in memory, under each weight_precision:
+    each run launches its own scheme only (2 per weighted set),
+    ncomp_used > 1, posterior closer to the truth than the prior; per-set
+    ms; each set's kernel call against its plain version at its own
+    inputs; and on the "highest" run's set-1 inputs the weight stage's
+    log-densities of every scheme, as the max abs difference from
+    "highest". Returns ({precision: launches}, errors)."""
+    import numpy as np
+    import torch
+
+    from abcsmc_tpu_torch import AbcSmc
+    from abcsmc_tpu_torch.ops import weights
+
+    t_phase = time.perf_counter()
+    raw = json.loads((REPO / "examples" / "dengue_surrogate.json")
+                     .read_text())
+    truth = np.array(json.loads(
+        re.search(r"truth=(\[[^\]]*\])", raw["comment"]).group(1)))
+    counts, errs, out, runs = {}, {}, {}, {}
+    for prec in ("highest", "high", "default"):
+        cfg = dict(raw, smc_iterations=PRECISION_SETS, database_filename="",
+                   weight_precision=prec)
+        reset_launches()
+        t0 = time.perf_counter()
+        with redirect_stderr(io.StringIO()):
+            run = AbcSmc(cfg, device="cuda").run_device(seed=0)
+        wall = time.perf_counter() - t0
+        by = read_launches()
+        want = 2 * (PRECISION_SETS - 1)
+        check(by == {k: want if k == prec else 0 for k in PRECISIONS},
+              f"precision {prec}: launches {by}")
+        counts = add_launches(counts, by)
+        gens = [e for e in run.timings if e["op"] == "device_generation"]
+        ncomp = [e["ncomp_used"] for e in gens]
+        check(len(ncomp) == PRECISION_SETS and min(ncomp) > 1,
+              f"precision {prec}: ncomp {ncomp}")
+        rmse_post, rmse_prior = posterior_rmse(run.posterior()[0], truth)
+        kerr = {}
+        for t in range(1, PRECISION_SETS):
+            surv, state = set_inputs(run, t)
+            shape, err = kernel_vs_plain_sampled(surv, state,
+                                                 precision=prec)
+            kerr[f"set {t} {shape}"] = errs[
+                f"precision {prec} set {t} {shape}"] = err
+        out[prec] = {"ncomp": ncomp, "launches": by, "wall_s": wall,
+                     "set_ms": [e["device_ms"] for e in gens],
+                     "route": [e.get("route") for e in gens],
+                     "rmse_posterior": rmse_post, "rmse_prior": rmse_prior,
+                     "kernel_vs_plain": kerr}
+        runs[prec] = run
+
+    # one weight stage on the same inputs (the "highest" run's set 1)
+    surv, (prev, prev_w, prev_dv) = set_inputs(runs["highest"], 1)
+    dens = {prec: weights.log_kernel_mixture_density(
+        surv, prev, torch.log(prev_w), prev_dv, precision=prec)
+        for prec in PRECISIONS}
+    diff = {prec: float((dens[prec] - dens["highest"]).abs().max())
+            for prec in PRECISIONS}
+    check(diff["high"] <= 2 * TOL, f"high vs highest log-weights {diff}")
+    check(diff["default"] <= 0.2, f"default vs highest log-weights {diff}")
+    emit({"phase": "precision", "sets": PRECISION_SETS, "runs": out,
+          "weight_stage_max_abs_diff_from_highest": diff,
+          "wall_s": time.perf_counter() - t_phase})
+    return counts, errs
+
+
+def set_inputs(run, t):
+    """Set t's weight-kernel inputs from a run's host copies: (its
+    survivors, (set t - 1's survivors, weights, doubled variance)), on the
+    run's device in its dtype."""
+    import torch
+
+    def dev(x):
+        return torch.as_tensor(x).to(run.device, run.dtype)
+
+    prev = run._particle_parameters[t - 1][run._predictive_prior[t - 1]]
+    surv = run._particle_parameters[t][run._predictive_prior[t]]
+    return dev(surv), (dev(prev), dev(run._weights[t - 1]),
+                       dev(run._doubled_variance[t - 1]))
+
+
+def reset_launches():
+    """Every launch count to 0 (the total and each scheme's)."""
+    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
+
+    mixture_logsumexp.launches = 0
+    for k in PRECISIONS:
+        mixture_logsumexp.launches_by_precision[k] = 0
+
+
+def read_launches():
+    """The launches by scheme since the last :func:`reset_launches`. Every
+    phase resets the counts just before each of its main-path runs and
+    reads them just after, and returns the sum of what it read."""
+    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
+
+    return dict(mixture_logsumexp.launches_by_precision)
+
+
+def add_launches(*counts):
+    """Launch counts by scheme, summed."""
+    return {k: sum(c.get(k, 0) for c in counts) for k in PRECISIONS}
 
 
 HOST_SETS = 2       # the host phases cut dengue_surrogate's sets, not widths
@@ -521,7 +742,8 @@ def dengue_host_config(tmp):
 
 def cli(*args):
     """``python -m abcsmc_tpu_torch`` as a subprocess on the card; returns
-    (wall seconds, the [timing] entries, the kernel launches it counted)."""
+    (wall seconds, the [timing] entries, the kernel launches it counted,
+    and those by dot scheme)."""
     t0 = time.perf_counter()
     run = subprocess.run(
         [sys.executable, "-m", "abcsmc_tpu_torch", *args, "--verbose"],
@@ -536,7 +758,10 @@ def cli(*args):
                if line.startswith("[timing] ")]
     launches = int(re.search(r"\[kernel\] mixture_logsumexp\.launches (\d+)",
                              run.stderr).group(1))
-    return wall, timings, launches
+    by_prec = json.loads(re.search(
+        r"\[kernel\] mixture_logsumexp\.launches_by_precision (\{.*\})",
+        run.stderr).group(1))
+    return wall, timings, launches, by_prec
 
 
 def store_rows(db):
@@ -578,8 +803,9 @@ def phase_host_cli():
     n, keep = 102_400, 2_048
     with tempfile.TemporaryDirectory() as tmp:
         path, cfg, db, truth = dengue_host_config(tmp)
-        wall, timings, launches = cli(path, "--process", "--simulate",
-                                      "--all", "--seed", "1")
+        wall, timings, launches, by_prec = cli(path, "--process",
+                                               "--simulate", "--all",
+                                               "--seed", "1")
         rows = store_rows(db)
         check(rows == [(t, n, n, keep) for t in range(HOST_SETS)],
               f"host_cli store rows {rows}")
@@ -591,6 +817,10 @@ def phase_host_cli():
         calls = sum(e["sets"] - 1 for e in timings if e["op"] == "process")
         check(calls > 0 and launches == 2 * calls,
               f"host_cli kernel launches {launches} for {calls} auto calls")
+        # the brain weighs at JAX's default for it, "highest" (FP32 FMAs)
+        check(by_prec == {k: launches if k == "highest" else 0
+                          for k in PRECISIONS},
+              f"host_cli launches by scheme {by_prec}")
 
         # the brain's state rebuilt by a brain pass on a copy of the store
         # (every set is ranked and the run is complete: the pass only reads
@@ -615,7 +845,7 @@ def phase_host_cli():
                                       stats.doubled_variance(prev))
         ref = mixture_logsumexp_reference(
             a.contiguous(), b.contiguous(),
-            torch.log(eng._tensor(post[t - 1][1])))
+            torch.log(eng._tensor(post[t - 1][1])), precision="highest")
         log_w = (eng.par_set.prior_log_pdf(pars) - (ref + log_norm)).double()
         d = np.log(post[t][1]) - log_w.cpu().numpy()
         live = log_w.cpu().numpy() > float(log_w.max()) - 80.0
@@ -628,29 +858,29 @@ def phase_host_cli():
           "per_set": [e for e in timings if e["op"] != "rank"],
           "log_weight_spread_nats": spread, "rmse_posterior": rmse_post,
           "rmse_prior": rmse_prior})
-    return launches, wall
+    return by_prec, wall
 
 
 def phase_resume():
     import numpy as np
 
     from abcsmc_tpu_torch import AbcSmc
-    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
     from abcsmc_tpu_torch.storage import SQLiteStorage
 
     n, keep, half = 102_400, 2_048, 51_200
     with tempfile.TemporaryDirectory() as tmp:
         path, cfg, db, truth = dengue_host_config(tmp)
-        wall_p, _, _ = cli(path, "--process", "--seed", "1")
-        wall_s, sim_timings, _ = cli(path, "--simulate", "-n", str(half))
+        wall_p, _, _, _ = cli(path, "--process", "--seed", "1")
+        wall_s, sim_timings, _, _ = cli(path, "--simulate", "-n", str(half))
         before = SQLiteStorage(db).read_generations()[0]
         done = before.statuses == "D"
         check(int(done.sum()) == half, f"resume: {int(done.sum())} rows done")
-        mixture_logsumexp.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         run = AbcSmc(cfg, device="cuda").run_device(seed=2)
         wall = time.perf_counter() - t0
-        launches = mixture_logsumexp.launches
+        by = read_launches()
+        launches = sum(by.values())
         run.storage.close()
         rows = store_rows(db)
         after = SQLiteStorage(db).read_generations()[0]
@@ -673,7 +903,7 @@ def phase_resume():
           "phases": [e for e in run.timings
                      if e["op"] == "run_device_phases"],
           "rmse_posterior": rmse_post, "rmse_prior": rmse_prior})
-    return launches
+    return by
 
 
 # name -> (truth as the config's comment states it, indices of the
@@ -804,21 +1034,21 @@ def reduction_price():
 
 def phase_examples():
     from abcsmc_tpu_torch import AbcSmc
-    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
 
-    total = 0
+    total = {}
     held = set(example_kernel_shapes())
     for name, (truth, must_beat, replay_tol) in EXAMPLES.items():
         cfg = json.loads((REPO / "examples" / f"{name}.json").read_text())
         db = cfg["database_filename"] = fresh_store(f"{name}.sqlite")
         n_sets = cfg["smc_iterations"]
-        mixture_logsumexp.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         with redirect_stderr(io.StringIO()):
             run = AbcSmc(cfg).run_device(seed=0)
         wall = time.perf_counter() - t0
-        launches = mixture_logsumexp.launches
-        total += launches
+        by = read_launches()
+        launches = sum(by.values())
+        total = add_launches(total, by)
         run.storage.close()
         rows = store_rows(db)
         sizes = [run.config.smc_size_at(t) for t in range(n_sets)]
@@ -848,7 +1078,6 @@ def phase_sir_1m():
     import torch
 
     from abcsmc_tpu_torch import AbcSmc
-    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
 
     cfg = json.loads((REPO / "examples" / "sir.json").read_text())
     (n, want_keep), n_sets = SIR_1M, 3
@@ -856,12 +1085,13 @@ def phase_sir_1m():
                database_filename="")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mixture_logsumexp.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     with redirect_stderr(io.StringIO()):
         run = AbcSmc(cfg).run_device(seed=0)
     wall = time.perf_counter() - t0
-    launches = mixture_logsumexp.launches
+    by = read_launches()
+    launches = sum(by.values())
     peak = torch.cuda.max_memory_allocated()
     keep = run.config.pred_prior_size_at(0)
     check(keep == want_keep, f"sir_1m keep {keep}")
@@ -878,14 +1108,13 @@ def phase_sir_1m():
           "rest_of_step_ms": [ms - sim for ms, sim in
                               zip(report["set_ms"], report["simulate_ms"])],
           "peak_memory_bytes": peak, "box_cox_lambdas": lambdas, **report})
-    return launches
+    return by
 
 
 def phase_projection():
     import numpy as np
 
     from abcsmc_tpu_torch import AbcSmc
-    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
     from abcsmc_tpu_torch.storage import SQLiteStorage
 
     def done_rows(db):
@@ -898,9 +1127,9 @@ def phase_projection():
     db = cfg["database_filename"] = fresh_store("pseudo.sqlite")
     path = SMOKE_DIR / "pseudo.json"
     path.write_text(json.dumps(cfg))
-    wall_cli, timings, launches_cli = cli(str(path), "--process",
-                                          "--simulate", "--all",
-                                          "--seed", "0")
+    wall_cli, timings, launches_cli, _ = cli(str(path), "--process",
+                                             "--simulate", "--all",
+                                             "--seed", "0")
     check(done_rows(db) == (25, 25), f"pseudo rows {done_rows(db)}")
     gen = SQLiteStorage(db).read_generations()[0]
     check(gen.params[:6].tolist() == [[1, 2], [2, 2], [3, 2], [4, 2],
@@ -917,7 +1146,7 @@ def phase_projection():
         {"name": "number of sides", "short_name": "sides",
          "dist_type": "PSEUDO", "num_type": "INT", "par1": 1, "par2": side},
     ]
-    mixture_logsumexp.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     with redirect_stderr(io.StringIO()):
         run = AbcSmc(sweep).run_device(seed=0)
@@ -973,8 +1202,8 @@ def phase_projection():
           == np.repeat(np.arange(n_post), n_rep).tolist(),
           "replay: retained source ranks")
     check(bool(np.isfinite(rep.particle_metrics[0]).all()), "replay metrics")
-    check(mixture_logsumexp.launches == 0,
-          f"projection kernel launches {mixture_logsumexp.launches}")
+    by = read_launches()
+    check(sum(by.values()) == 0, f"projection kernel launches {by}")
     emit({"phase": "projection", "kernel_launches": 0,
           "note": "a projection has no weights: no kernel on this path",
           "pseudo_cli": {"rows": 25, "wall_s": wall_cli,
@@ -985,7 +1214,7 @@ def phase_projection():
           "replay": {"rows": n_post * n_rep, "wall_s": wall_replay,
                      **[e for e in rep.timings
                         if e["op"] == "simulate_device"][0]}})
-    return 0
+    return by
 
 
 # --------------------------------------------------------------------------- #
@@ -1111,11 +1340,11 @@ def scale_step(n, keep, row_block, split):
     return out, leaves, state
 
 
-def kernel_vs_plain_sampled(surv_par, state, rows=4096):
+def kernel_vs_plain_sampled(surv_par, state, rows=4096, precision="high"):
     """The kernel at a step's own shape (survivors x previous survivors x
     parameters) against plain on ``rows`` evenly spaced query rows (plain
     is a function of each query row by itself, and costs 50 times the
-    kernel)."""
+    kernel), in the step's scheme (the config default's unless named)."""
     import torch
 
     from abcsmc_tpu_torch.ops.kernels import (
@@ -1126,10 +1355,11 @@ def kernel_vs_plain_sampled(surv_par, state, rows=4096):
     a, b, _ = _prep_scaled(surv_par, state[0], state[2])
     a, b = a.contiguous(), b.contiguous()
     lw = torch.log(state[1]).contiguous()
-    got = mixture_logsumexp(a, b, lw)
+    got = mixture_logsumexp(a, b, lw, precision=precision)
     pick = torch.linspace(0, a.shape[0] - 1, min(rows, a.shape[0]),
                           device=a.device).long()
-    ref = mixture_logsumexp_reference(a[pick].contiguous(), b, lw)
+    ref = mixture_logsumexp_reference(a[pick].contiguous(), b, lw,
+                                      precision=precision)
     err = float((got[pick] - ref).abs().max())
     shape = f"{a.shape[0]}x{b.shape[0]}x{a.shape[1]}"
     check(err <= TOL, f"kernel at {shape}: max abs err {err}")
@@ -1144,10 +1374,9 @@ def phase_hbm_scale():
     from abcsmc_tpu_torch.models.simulators import (
         make_linear_gaussian_simulator,
     )
-    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
 
     t_phase = time.perf_counter()
-    launches = 0
+    launches = {}
     errs = {}
     scale_step(1 << 20, 1 << 15, 0, False)      # first-use work, untimed
     for n in SCALE_SIZES:
@@ -1155,11 +1384,11 @@ def phase_hbm_scale():
         ref = None
         for row_block in (0, SCALE_BLOCK):
             for split in (False, True):
-                mixture_logsumexp.launches = 0
+                reset_launches()
                 out, leaves, state = scale_step(n, keep, row_block, split)
-                check(mixture_logsumexp.launches == 2,
-                      f"hbm_scale step launches {mixture_logsumexp.launches}")
-                launches += 2
+                by = read_launches()
+                check(sum(by.values()) == 2, f"hbm_scale step launches {by}")
+                launches = add_launches(launches, by)
                 check(out["ncomp_used"] > 1, f"hbm_scale ncomp {out}")
                 if ref is None:
                     ref = leaves
@@ -1200,11 +1429,12 @@ def phase_hbm_scale():
           "the auto rule keeps 2^24 resident and unsplit")
     del gen
     torch.cuda.empty_cache()
-    mixture_logsumexp.launches = 0
     keep_big = min(n_big // 20, SCALE_KEEP_CAP)
+    reset_launches()
     big, leaves, state = scale_step(n_big, keep_big, None, None)
-    check(mixture_logsumexp.launches == 2, "largest step launches")
-    launches += 2
+    by = read_launches()
+    check(sum(by.values()) == 2, f"largest step launches {by}")
+    launches = add_launches(launches, by)
     check(big["ncomp_used"] > 1 and big["peak_bytes"] <= budget,
           f"largest step: {big} against a budget of {budget}")
     shape, err = kernel_vs_plain_sampled(leaves[1], state)
@@ -1220,15 +1450,16 @@ def phase_hbm_scale():
                               propose_split=True, database_filename="")
     sim = make_linear_gaussian_simulator(SCALE_NPAR, SCALE_NMET,
                                          noise_sd=0.3, mix=scale_mix())
-    mixture_logsumexp.launches = 0
     torch.cuda.reset_peak_memory_stats()
+    reset_launches()
     t0 = time.perf_counter()
     with redirect_stderr(io.StringIO()):
         run = AbcSmc(raw, simulator=sim).run_device(seed=0,
                                                     mirror_store=False)
     wall = time.perf_counter() - t0
-    run_launches = mixture_logsumexp.launches
-    launches += run_launches
+    by = read_launches()
+    run_launches = sum(by.values())
+    launches = add_launches(launches, by)
     check(run_launches == 2 * (sets - 1), f"hbm run launches {run_launches}")
     check(not run.storage.exists(), "mirror_store=False wrote a store")
     gens = [e for e in run.timings if e["op"] == "device_generation"]
@@ -1276,24 +1507,22 @@ def routed_run(cfg, dispatch, seed=0, rejection_block=None):
     """``run_device`` of ``cfg`` (in-memory store) under one
     ``device_dispatch``, with the MULTIVARIATE rejection block of
     ``Generation`` set to ``rejection_block`` rounds where given; returns
-    (engine, wall s, kernel launches, stderr)."""
+    (engine, wall s, kernel launches by scheme, stderr)."""
     from abcsmc_tpu_torch import AbcSmc, Generation
-    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
 
     cfg = dict(cfg, device_dispatch=dispatch, database_filename="")
     block = Generation.rejection_block
     if rejection_block is not None:
         Generation.rejection_block = rejection_block
-    mixture_logsumexp.launches = 0
     err = io.StringIO()
+    reset_launches()
     t0 = time.perf_counter()
     try:
         with redirect_stderr(err):
             run = AbcSmc(cfg).run_device(seed=seed, verbose=True)
     finally:
         Generation.rejection_block = block
-    return (run, time.perf_counter() - t0, mixture_logsumexp.launches,
-            err.getvalue())
+    return run, time.perf_counter() - t0, read_launches(), err.getvalue()
 
 
 def stored_diff(a, b):
@@ -1361,9 +1590,9 @@ class ReplayedKernelCheck:
         density, capture, replay = self._saved
         recorded = []
 
-        def recording_density(*args):
-            out = density(*args)
-            recorded.append((args, out))
+        def recording_density(*args, **kw):
+            out = density(*args, **kw)
+            recorded.append((args, kw.get("precision"), out))
             return out
 
         def recording_capture(gen, *args, **kw):
@@ -1373,9 +1602,10 @@ class ReplayedKernelCheck:
 
         def checked_replay(gen, cap, *args, **kw):
             res = replay(gen, cap, *args, **kw)
-            (surv, prev, prev_lw, prev_dv), out = cap.kernel_record
+            (surv, prev, prev_lw, prev_dv), prec, out = cap.kernel_record
             a, b, log_norm = weights._prep_scaled(surv, prev, prev_dv)
-            ref = mixture_logsumexp_reference(a, b, prev_lw.to(a)) + log_norm
+            ref = mixture_logsumexp_reference(
+                a, b, prev_lw.to(a), precision=prec) + log_norm
             self.errs.append(float((out - ref).abs().max()))
             return res
 
@@ -1404,11 +1634,11 @@ def replayed_kernel_vs_plain():
     errs = {}
     for n, m, p in ((2048, 2048, 16), (410, 410, 3)):
         static = [x.clone() for x in kernel_inputs(n, m, p, seed=1)]
-        mixture_logsumexp(*static)                       # warm-up
+        mixture_logsumexp(*static, precision="high")     # warm-up
         torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            out = mixture_logsumexp(*static)
+            out = mixture_logsumexp(*static, precision="high")
         for seed in (2, 3):
             fresh = kernel_inputs(n, m, p, seed=seed)
             for dst, src in zip(static, fresh):
@@ -1427,20 +1657,18 @@ def phase_fused():
     import torch
 
     from abcsmc_tpu_torch.ops import stats
-    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
 
     t_phase = time.perf_counter()
-    total = 0
-    before = mixture_logsumexp.launches
+    total = {}
     kernel_errs = replayed_kernel_vs_plain()
-    mixture_logsumexp.launches = before
     for name in FUSED_EXAMPLES:
         cfg = json.loads((REPO / "examples" / f"{name}.json").read_text())
         n_sets = cfg["smc_iterations"]
-        seq, wall_seq, l_seq, _ = routed_run(cfg, "sequential")
+        seq, wall_seq, by_seq, _ = routed_run(cfg, "sequential")
         seq2, wall_seq2, _, _ = routed_run(cfg, "sequential")
-        fused, wall_fused, l_fused, said = routed_run(cfg, "fused")
-        total += l_seq + l_fused
+        fused, wall_fused, by_fused, said = routed_run(cfg, "fused")
+        total = add_launches(total, by_seq, by_fused)
+        l_seq, l_fused = sum(by_seq.values()), sum(by_fused.values())
         agree = stored_diff(seq, seq2)
         diff = stored_diff(seq, fused)
         check(diff <= agree, f"{name}: fused differs from sequential by "
@@ -1480,9 +1708,11 @@ def phase_fused():
     t_cut = records[0]
     tol = (nrmse[t_cut] + min(nrmse[:t_cut])) / 2
     cfg = chain_config(nrmse_tolerance=tol)
-    seq, wall_seq, l_seq, _ = routed_run(cfg, "sequential", seed=chain_seed)
-    fused, wall_fused, l_fused, _ = routed_run(cfg, "fused", seed=chain_seed)
-    total += l_seq + l_fused
+    seq, wall_seq, by_seq, _ = routed_run(cfg, "sequential", seed=chain_seed)
+    fused, wall_fused, by_fused, _ = routed_run(cfg, "fused",
+                                                seed=chain_seed)
+    total = add_launches(total, by_seq, by_fused)
+    l_seq, l_fused = sum(by_seq.values()), sum(by_fused.values())
     check(len(seq.particle_parameters) == t_cut + 1,
           f"chain: sequential stopped after {len(seq.particle_parameters)} "
           f"sets, expected {t_cut + 1}")
@@ -1503,25 +1733,26 @@ def phase_fused():
           "launches": {"sequential": l_seq, "fused": l_fused},
           "sequential_30_sets": route_report(free), "fused": rep})
 
-    total += fused_mvn(kernel_errs)
+    total = add_launches(total, fused_mvn(kernel_errs))
     emit({"phase": "fused", "kernel_replayed_max_abs_err": kernel_errs,
           "phase_wall_s": time.perf_counter() - t_phase})
     return total, kernel_errs
 
 
 def fused_mvn(kernel_errs):
-    """The fused phase's MULTIVARIATE part; returns its kernel launches and
-    adds the error of the kernel inside the replayed MVN graphs to
-    ``kernel_errs``."""
-    total = 0
+    """The fused phase's MULTIVARIATE part; returns its kernel launches by
+    scheme and adds the error of the kernel inside the replayed MVN graphs
+    to ``kernel_errs``."""
+    total = {}
     # the rejection loop runs a fixed block of rounds inside the graph and
     # its count is read once per set
     for name in MVN_FUSED:
         cfg = json.loads((REPO / "examples" / f"{name}.json").read_text())
         n_sets = cfg["smc_iterations"]
-        seq, wall_seq, l_seq, _ = routed_run(cfg, "sequential")
-        fused, wall_fused, l_fused, said = routed_run(cfg, "fused")
-        total += l_seq + l_fused
+        seq, wall_seq, by_seq, _ = routed_run(cfg, "sequential")
+        fused, wall_fused, by_fused, said = routed_run(cfg, "fused")
+        total = add_launches(total, by_seq, by_fused)
+        l_seq, l_fused = sum(by_seq.values()), sum(by_fused.values())
         diff = stored_diff(seq, fused)
         rep, rep_seq = route_report(fused), route_report(seq)
         planned = sum(r == "replay" for r in rep["routes"])
@@ -1551,7 +1782,7 @@ def fused_mvn(kernel_errs):
     cfg = json.loads((REPO / "examples" / "dice.json").read_text())
     blocks = (1, Generation.rejection_block) * 2
     runs = [routed_run(cfg, "sequential", rejection_block=b) for b in blocks]
-    total += sum(r[2] for r in runs)
+    total = add_launches(total, *(r[2] for r in runs))
     for run, *_ in runs[1:]:
         check(stored_diff(runs[0][0], run) == 0.0,
               f"dice: rejection blocks {blocks} give other rows")
@@ -1565,11 +1796,12 @@ def fused_mvn(kernel_errs):
     # block, and the kernel inside each replayed MVN graph against plain
     cfg = json.loads((REPO / "examples" / "dice.json").read_text())
     n_sets = cfg["smc_iterations"]
-    seq, _, l_seq, _ = routed_run(cfg, "sequential")
+    seq, _, by_seq, _ = routed_run(cfg, "sequential")
     with ReplayedKernelCheck() as kcheck:
-        forced, wall_forced, l_forced, _ = routed_run(cfg, "fused",
-                                                      rejection_block=2)
-    total += l_seq + l_forced
+        forced, wall_forced, by_forced, _ = routed_run(cfg, "fused",
+                                                       rejection_block=2)
+    total = add_launches(total, by_seq, by_forced)
+    l_seq, l_forced = sum(by_seq.values()), sum(by_forced.values())
     diff = stored_diff(seq, forced)
     rep = route_report(forced)
     finished = [f for f, r in zip(rep["mvn_finished_eagerly"],
@@ -1708,21 +1940,19 @@ def mesh_kernel_vs_plain(res, state, shards):
     pad = torch.cat([surv, surv[-1:].expand(k_per * shards - keep, -1)])
     prev_par, prev_w, prev_dv = state
     err, ms, plain_ms = 0.0, [], []
-    saved = mixture_logsumexp.launches
     for s in range(shards):
         a, b, _ = weights._prep_scaled(pad[s * k_per:(s + 1) * k_per],
                                        prev_par, prev_dv)
         a, b = a.contiguous(), b.contiguous()
         lw = torch.log(prev_w).contiguous()
-        got = mixture_logsumexp(a, b, lw)
+        got = mixture_logsumexp(a, b, lw, precision="high")
         ref = mixture_logsumexp_reference(a, b, lw)
         torch.cuda.synchronize()
         err = max(err, float((got - ref).abs().max()))
-        ms.append(cuda_ms(lambda: mixture_logsumexp(a, b, lw), 5))
+        ms.append(cuda_ms(lambda: mixture_logsumexp(a, b, lw,
+                                                    precision="high"), 5))
         plain_ms.append(cuda_ms(
             lambda: mixture_logsumexp_reference(a, b, lw), 5))
-    # comparison launches are not main-path launches
-    mixture_logsumexp.launches = saved
     return err, ms, plain_ms, (k_per, prev_par.shape[0], surv.shape[1])
 
 
@@ -1736,7 +1966,6 @@ def mesh_north_star():
     import torch
     import torch.distributed as dist
 
-    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
 
     n, keep, k = MESH_N, MESH_KEEP, MESH_SHARDS
     data, state = scale_data(n, keep)
@@ -1746,14 +1975,15 @@ def mesh_north_star():
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
                             world_size=1, rank=0)
     try:
-        mixture_logsumexp.launches = 0
+        reset_launches()
         steps = mesh_steps(n, keep, data, state, [
             ("one", ["cuda:0"], {}),
             ("mesh4", ["cuda:0"] * k, {"topk_two_stage": False}),
             ("mesh4_two_stage", ["cuda:0"] * k, {"topk_two_stage": True}),
             ("nccl_1rank", ["cuda:0"], {}),
         ], nccl_group=dist.group.WORLD)
-        launches = mixture_logsumexp.launches
+        by = read_launches()
+        launches = sum(by.values())
     finally:
         dist.destroy_process_group()
     one, four = steps["one"][1], steps["mesh4"][1]
@@ -1807,7 +2037,7 @@ def mesh_north_star():
         "shard_bound_share": [bound["bound_ms"] / t for t in ms],
         "launches": launches,
     }
-    return launches, {"mesh_shard_12500x50000x6": err}, report
+    return by, {"mesh_shard_12500x50000x6": err}, report
 
 
 def mesh_dengue():
@@ -1816,7 +2046,6 @@ def mesh_dengue():
     import numpy as np
 
     from abcsmc_tpu_torch import AbcSmc
-    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
     from abcsmc_tpu_torch.parallel.mesh import particle_mesh
 
     path = REPO / "examples" / "dengue_surrogate.json"
@@ -1827,15 +2056,17 @@ def mesh_dengue():
     k, n_sets = MESH_RUNS["dengue_surrogate"]
     cfg["smc_iterations"] = n_sets
     shapes = mesh_kernel_shapes("dengue_surrogate")
-    check(shapes <= HELD, f"dengue mesh: kernel shapes {shapes - HELD} "
+    check(with_high(shapes) <= HELD, f"dengue mesh: kernel shapes "
+          f"{with_high(shapes) - HELD} "
           "were not held against plain")
     db = cfg["database_filename"] = fresh_store("dengue_mesh3.sqlite")
-    mixture_logsumexp.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     run = AbcSmc(cfg, device="cuda").run_device(
         seed=0, mesh=particle_mesh(["cuda:0"] * k))
     wall = time.perf_counter() - t0
-    launches = mixture_logsumexp.launches
+    by = read_launches()
+    launches = sum(by.values())
     run.storage.close()
     rows = store_rows(db)
     check(rows == [(t, n, n, keep) for t in range(n_sets)],
@@ -1849,7 +2080,7 @@ def mesh_dengue():
     rmse_prior = float(np.sqrt(((0.5 - truth) ** 2).mean()))
     check(rmse_post < rmse_prior, f"dengue mesh posterior rmse {rmse_post} "
           f">= prior {rmse_prior}")
-    return launches, {"store_rows": rows, "wall_s": wall,
+    return by, {"store_rows": rows, "wall_s": wall,
                       "kernel_shapes": sorted(shapes),
                       "rmse_posterior": rmse_post, "rmse_prior": rmse_prior,
                       "routes": rep["routes"], "set_ms": rep["set_ms"],
@@ -1861,25 +2092,26 @@ def mesh_fits():
     """sir (MULTIVARIATE) and dice (MULTIVARIATE, systematic resampling) as
     shipped on a 2-shard mesh of cuda:0, SQLite stores."""
     from abcsmc_tpu_torch import AbcSmc
-    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
     from abcsmc_tpu_torch.parallel.mesh import particle_mesh
 
-    out, launches = {}, 0
+    out, launches = {}, {}
     for name, extra in (("sir", {}), ("dice", {"resample_method":
                                                "systematic"})):
         k = MESH_RUNS[name][0]
         shapes = mesh_kernel_shapes(name)
-        check(shapes <= HELD, f"{name} mesh: kernel shapes {shapes - HELD} "
+        check(with_high(shapes) <= HELD, f"{name} mesh: kernel shapes "
+              f"{with_high(shapes) - HELD} "
               "were not held against plain")
         cfg = json.loads((REPO / "examples" / f"{name}.json").read_text())
         cfg.update(extra)
         cfg["database_filename"] = fresh_store(f"{name}_mesh2.sqlite")
-        mixture_logsumexp.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         run = AbcSmc(cfg, device="cuda").run_device(
             seed=0, mesh=particle_mesh(["cuda:0"] * k))
         wall = time.perf_counter() - t0
-        n_launch = mixture_logsumexp.launches
+        by = read_launches()
+        n_launch = sum(by.values())
         run.storage.close()
         sets = cfg["smc_iterations"]
         check(n_launch == 2 * k * (sets - 1),
@@ -1891,7 +2123,7 @@ def mesh_fits():
                      "mvn_rounds": rep["mvn_rounds"], "ncomp": rep["ncomp"],
                      "routes": rep["routes"], "set_ms": rep["set_ms"],
                      "posterior_mean": rep["posterior_mean"]}
-        launches += n_launch
+        launches = add_launches(launches, by)
     return launches, out
 
 
@@ -1905,16 +2137,14 @@ def mesh_multi_device():
         print(f"mesh: the multi-device mesh did not run: this machine has "
               f"{count} CUDA device (a mesh over several cards needs two "
               "or more)", flush=True)
-        return 0, None
-    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
-
+        return {}, None
     n, keep = MESH_N, MESH_KEEP
     data, state = scale_data(n, keep)
-    mixture_logsumexp.launches = 0
+    reset_launches()
     steps = mesh_steps(n, keep, data, state, [
         ("one", ["cuda:0"], {}),
         ("devices", [f"cuda:{i}" for i in range(count)], {})])
-    launches = mixture_logsumexp.launches
+    launches = read_launches()
     one, many = steps["one"][1], steps["devices"][1]
     check(int(one.ncomp_used) == int(many.ncomp_used),
           "multi-device ncomp")
@@ -1960,13 +2190,11 @@ def phase_mesh():
     (two-stage top-K, a one-rank NCCL group), dengue_surrogate on 3 shards,
     sir and dice on 2, and a mesh over several cards where there are."""
     t0 = time.perf_counter()
-    launches, errs, north = mesh_north_star()
-    more, dengue = mesh_dengue()
-    launches += more
-    more, fits = mesh_fits()
-    launches += more
-    more, multi = mesh_multi_device()
-    launches += more
+    l_north, errs, north = mesh_north_star()
+    l_dengue, dengue = mesh_dengue()
+    l_fits, fits = mesh_fits()
+    l_multi, multi = mesh_multi_device()
+    launches = add_launches(l_north, l_dengue, l_fits, l_multi)
     if multi is not None:
         errs["mesh_multi_device_shard"] = multi["shard_kernel_max_abs_err"]
     emit({"phase": "mesh", "north_star": north, "dengue_mesh3": dengue,
@@ -1999,11 +2227,14 @@ STUDY_RUNS = (
 
 
 def study_kernel_errs(tool, lines):
-    """The kernel-against-float64 errors a harness held to 2e-4 nats (a
-    swept split beyond the plan's cap is reported, not held)."""
+    """The kernel errors a harness held to 2e-4 nats: against float64, or
+    for the "default" scheme against its own plain version (a swept split
+    beyond the plan's cap is reported, not held)."""
     errs = {}
     for row in lines:
-        err = row.get("max_abs_err_f64_sampled")
+        own = row.get("precision") == "default"
+        err = row.get("max_abs_err_own_sampled" if own
+                      else "max_abs_err_f64_sampled")
         if err is None or row.get("within_cap") is False:
             continue
         errs[f"study {tool} {row['metric']}"] = err
@@ -2015,13 +2246,12 @@ def phase_study():
 
     import torch
 
-    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
 
     out_dir = SMOKE_DIR / "study"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
     t_phase = time.perf_counter()
-    mixture_logsumexp.launches = 0
+    reset_launches()
     errs, seconds = {}, {}
     for i, (tool, argv) in enumerate(STUDY_RUNS):
         out = out_dir / f"{i:02d}_{tool}.jsonl"
@@ -2037,13 +2267,16 @@ def phase_study():
         emit({"phase": "study", "tool": tool, "argv": argv,
               "seconds": seconds[f"{i:02d}_{tool}"], "lines": lines[1:]})
         torch.cuda.empty_cache()
-    launches = mixture_logsumexp.launches
+    by_prec = read_launches()
+    launches = sum(by_prec.values())
     check(launches > 0, "study phase launched no kernel")
     check(max(errs.values()) <= TOL, f"study kernel errors {errs}")
-    emit({"phase": "study", "launches": launches, "seconds": seconds,
-          "kernel_max_abs_err_f64": max(errs.values()),
+    # every launch of the phase counts: its split by scheme
+    emit({"phase": "study", "launches": launches,
+          "launches_by_precision": by_prec, "seconds": seconds,
+          "kernel_max_abs_err_held": max(errs.values()),
           "wall_s": time.perf_counter() - t_phase})
-    return launches, errs
+    return by_prec, errs
 
 
 # --------------------------------------------------------------------------- #
@@ -2090,7 +2323,7 @@ class held_shapes_only:
         self.kernels, self.orig, self.seen = kernels, kernels._launch, set()
 
         def launch(a, b, log_w, mode, **kw):
-            shape = (a.shape[0], b.shape[0], a.shape[1])
+            shape = (a.shape[0], b.shape[0], a.shape[1], kw["precision"])
             check(shape in HELD, f"bench: kernel shape {shape} was not "
                   "held against plain in the kernel phase")
             self.seen.add(shape)
@@ -2143,11 +2376,10 @@ def phase_bench():
     import torch
 
     from abcsmc_tpu_torch import bench, bench_extra, graft_entry
-    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
     from abcsmc_tpu_torch.tools import scaling_analysis
 
     t_phase = time.perf_counter()
-    mixture_logsumexp.launches = 0
+    reset_launches()
     seconds, out = {}, {}
     with held_shapes_only() as held:
         for route in ("eager", "replay"):
@@ -2202,12 +2434,13 @@ def phase_bench():
         out["scaling_table"] = [x for x in table if x.startswith("|")]
         out["scaling_single_stage"] = single
         seconds["scaling"] = time.perf_counter() - t0
-    launches = mixture_logsumexp.launches
+    by = read_launches()
+    launches = sum(by.values())
     check(launches > 0, "bench phase launched no kernel")
     emit({"phase": "bench", **out, "launches": launches,
           "kernel_shapes": sorted(held.seen), "seconds": seconds,
           "wall_s": time.perf_counter() - t_phase})
-    return launches, {}
+    return by, {}
 
 
 # --------------------------------------------------------------------------- #
@@ -2266,46 +2499,37 @@ def numpy_linear_gaussian(mix):
 def bridged_dengue(dispatch, db, seed=0):
     """examples/dengue_surrogate.json at its widths, BRIDGE_SETS sets,
     SQLite, through run_device with the numpy linear-Gaussian behind a
-    HostBridgeSimulator; returns (engine, wall s, kernel launches,
-    stderr)."""
+    HostBridgeSimulator; returns (engine, wall s, kernel launches by
+    scheme, stderr)."""
     from abcsmc_tpu_torch import AbcSmc
     from abcsmc_tpu_torch.models.simulators import (
         HostBridgeSimulator, shipped_mix,
     )
-    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
 
     cfg = json.loads((REPO / "examples" / "dengue_surrogate.json").read_text())
     cfg.update(smc_iterations=BRIDGE_SETS, database_filename=db,
                device_dispatch=dispatch)
     sim = HostBridgeSimulator(numpy_linear_gaussian(shipped_mix(16, 100)),
                               nmet=100)
-    mixture_logsumexp.launches = 0
     err = io.StringIO()
+    reset_launches()
     t0 = time.perf_counter()
     with redirect_stderr(err):
         run = AbcSmc(cfg, device="cuda", simulator=sim).run_device(
             seed=seed, verbose=True)
     wall = time.perf_counter() - t0
+    by = read_launches()
     run.storage.close()
-    return run, wall, mixture_logsumexp.launches, err.getvalue()
+    return run, wall, by, err.getvalue()
 
 
 def run_kernel_shapes(run):
     """The kernel against plain at each set's own inputs (set t's
     survivors against set t - 1's state), from the run's host copies of
     the float32 values the step computed with."""
-    import torch
-
-    def dev(x):
-        return torch.as_tensor(x).to(run.device, run.dtype)
-
     errs = {}
     for t in range(1, len(run._predictive_prior)):
-        prev = run._particle_parameters[t - 1][run._predictive_prior[t - 1]]
-        state = (dev(prev), dev(run._weights[t - 1]),
-                 dev(run._doubled_variance[t - 1]))
-        surv = run._particle_parameters[t][run._predictive_prior[t]]
-        shape, err = kernel_vs_plain_sampled(dev(surv), state)
+        shape, err = kernel_vs_plain_sampled(*set_inputs(run, t))
         errs[f"bridge set {t} {shape}"] = err
     return errs
 
@@ -2315,14 +2539,14 @@ def bridge_mesh_dice():
     card, 96 rows a set, 3 sets: the host function journals every row it
     simulates; the journal's union equals the stored rows as multisets and
     every shard made its calls (one a set, in shard order, a quarter of
-    the rows each). Returns (the phase's numbers, kernel launches)."""
+    the rows each). Returns (the phase's numbers, kernel launches by
+    scheme)."""
     from collections import Counter
 
     import numpy as np
 
     from abcsmc_tpu_torch import AbcSmc
     from abcsmc_tpu_torch.models.simulators import HostBridgeSimulator
-    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
     from abcsmc_tpu_torch.parallel import particle_mesh
 
     shards, n, sets = BRIDGE_MESH
@@ -2353,13 +2577,14 @@ def bridge_mesh_dice():
                     {"name": "sd", "num_type": "FLOAT", "value": 2.39925}],
     }
     mesh = particle_mesh(["cuda:0"] * shards)
-    mixture_logsumexp.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     with redirect_stderr(io.StringIO()):
         run = AbcSmc(cfg, device="cuda", simulator=HostBridgeSimulator(
             dice_host, nmet=2)).run_device(seed=19, mesh=mesh)
     wall = time.perf_counter() - t0
-    launches = mixture_logsumexp.launches
+    by = read_launches()
+    launches = sum(by.values())
     gens = run.storage.read_generations()
     stored = [(int(round(p[0])), int(round(p[1])), int(s))
               for g in gens for p, s in zip(g.params, g.seeds)]
@@ -2376,7 +2601,7 @@ def bridge_mesh_dice():
     return {"shards": shards, "rows_per_set": n, "sets": sets,
             "host_calls": len(journal), "rows_per_call": sizes[0],
             "journal_rows": sum(sizes), "store_rows": len(stored),
-            "wall_s": wall}, launches
+            "wall_s": wall}, by
 
 
 def phase_bridge(host_cli_wall=None):
@@ -2392,15 +2617,15 @@ def phase_bridge(host_cli_wall=None):
     import numpy as np
     import torch
 
-    from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
     from abcsmc_tpu_torch.tools import validate
 
     t_phase = time.perf_counter()
     cfg = json.loads((REPO / "examples" / "dengue_surrogate.json").read_text())
     truth = np.array(json.loads(
         re.search(r"truth=(\[[^\]]*\])", cfg["comment"]).group(1)))
-    seq, wall, launches, said = bridged_dengue(
+    seq, wall, by_seq, said = bridged_dengue(
         "sequential", fresh_store("bridge_dengue.sqlite"))
+    launches = sum(by_seq.values())
     check("falling back" not in said, "bridge: the host engine ran")
     n, keep = cfg["num_samples"], seq.config.pred_prior_size_at(0)
     rows = store_rows(seq.storage.path)
@@ -2419,8 +2644,9 @@ def phase_bridge(host_cli_wall=None):
     rmse_post, rmse_prior = posterior_rmse(seq.posterior()[0], truth)
     errs = run_kernel_shapes(seq)
 
-    fused, wall_fused, l_fused, said_fused = bridged_dengue(
+    fused, wall_fused, by_fused, said_fused = bridged_dengue(
         "fused", fresh_store("bridge_dengue_fused.sqlite"))
+    l_fused = sum(by_fused.values())
     frep = route_report(fused)
     check(frep["route"] == "scan" and frep["graph_captures"] == 0
           and frep["graph_replays"] == 0
@@ -2431,14 +2657,14 @@ def phase_bridge(host_cli_wall=None):
     diff = stored_diff(seq, fused)
     check(diff == 0.0, f"bridge: fused differs from sequential by {diff}")
     check(l_fused == launches, f"bridge fused launches {l_fused}")
-    mesh_out, l_mesh = bridge_mesh_dice()
+    mesh_out, by_mesh = bridge_mesh_dice()
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    mixture_logsumexp.launches = 0
+    reset_launches()
     lines, _ = run_main(validate.main, [])
     validate_s = time.perf_counter() - t0
-    validate_launches = mixture_logsumexp.launches
+    validate_launches = read_launches()
     kern = [r for r in lines if r.get("metric", "").startswith("mixture")]
     check(len(kern) == len(validate.SHAPES)
           and max(r["max_abs_err"] for r in kern) <= TOL,
@@ -2463,11 +2689,14 @@ def phase_bridge(host_cli_wall=None):
                     "route": frep["route"],
                     "graph_captures": frep["graph_captures"],
                     "stored_max_abs_diff": diff, "launches": l_fused},
-          "mesh_dice": mesh_out, "mesh_launches": l_mesh})
+          "mesh_dice": mesh_out, "mesh_launches": by_mesh})
     emit({"phase": "bridge", "tool": "validate", "seconds": validate_s,
           "validate_launches": validate_launches, "lines": lines[1:]})
     emit({"phase": "bridge", "wall_s": time.perf_counter() - t_phase})
-    return launches + l_fused + l_mesh, errs
+    return add_launches(by_seq, by_fused, by_mesh), errs
+
+
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -2505,47 +2734,66 @@ def main() -> int:
     def wanted(name):
         return not only or name in only
 
-    errs, times = phase_kernel()
-    launches = 0
+    errs, times, schemes = phase_kernel()
+    main_path = dict.fromkeys(PRECISIONS, 0)
+    walls = {}
+
+    def run(name, phase):
+        """Runs a phase; adds its main-path launches by scheme (each read
+        just after a main-path run, the counts reset just before it) to
+        main_path."""
+        t0 = time.perf_counter()
+        more, *rest = phase()
+        walls[name] = time.perf_counter() - t0
+        for k, v in more.items():
+            main_path[k] += v
+        return rest
+
     dengue_run = None
     if wanted("dengue") or wanted("surfaces"):
-        dengue_launches, dengue_run = phase_dengue()
-        launches += dengue_launches
+        (dengue_run,) = run("dengue", phase_dengue)
     if wanted("north"):
-        launches += phase_north()
+        run("north", lambda: (phase_north(),))
     host_cli_wall = None
     if wanted("host_cli"):
-        more, host_cli_wall = phase_host_cli()
-        launches += more
+        (host_cli_wall,) = run("host_cli", phase_host_cli)
     for name, phase in (("resume", phase_resume),
                         ("examples", phase_examples),
                         ("sir_1m", phase_sir_1m),
                         ("projection", phase_projection)):
         if wanted(name):
-            launches += phase()
+            run(name, lambda: (phase(),))
     for name, phase in (("hbm_scale", phase_hbm_scale),
                         ("fused", phase_fused), ("mesh", phase_mesh),
                         ("study", phase_study), ("bench", phase_bench),
-                        ("bridge", lambda: phase_bridge(host_cli_wall))):
+                        ("bridge", lambda: phase_bridge(host_cli_wall)),
+                        ("precision", phase_precision)):
         if wanted(name):
-            more, more_errs = phase()
-            launches += more
+            (more_errs,) = run(name, phase)
             errs.update(more_errs)
     if wanted("surfaces"):
+        t0 = time.perf_counter()
         phase_surfaces(dengue_run)
+        walls["surfaces"] = time.perf_counter() - t0
+    walls["script"] = time.perf_counter() - T_START
+    emit({"phase": "walls", "seconds": walls,
+          "main_path_launches": main_path})
     n, m, p = REPORT_SHAPE
     big = f"{n}x{m}x{p}"
     bound = kernel_bound_ms(n, m, p)
     n2, m2, p2 = KERNEL_SHAPES[-1]
     small_p = f"{n2}x{m2}x{p2}"
     bound_p2 = kernel_bound_ms(n2, m2, p2)
-    emit({"kernels": [{
-        "name": "mixture_logsumexp",
+    high_errs = [v for k, v in errs.items() if "rel" not in k
+                 and "default" not in k and "highest" not in k]
+    entries = [{
+        "name": KERNEL_NAMES["high"],
         "route": "cuda",
         "source": "abcsmc_tpu_torch/csrc/mixture_logsumexp.cu",
         "replaces": "abcsmc_tpu/ops/pallas_kernels.py:166",
-        "launches": launches,
-        "max_abs_err": max(v for k, v in errs.items() if "rel" not in k),
+        "precision": "high",
+        "launches": main_path["high"],
+        "max_abs_err": max(high_errs),
         "ms": times[big]["ms"],
         "plain_ms": times[big]["plain_ms"],
         "bound_ms": bound["bound_ms"],
@@ -2562,6 +2810,7 @@ def main() -> int:
                       *map(int, key.split("x"))).items()
                      if k in ("bound_ms", "bound_by")}}
             for key, t in times.items()},
+        "schemes_by_shape": schemes["high"],
         "p2": {"shape": [n2, m2, p2], "ms": times[small_p]["ms"],
                "plain_ms": times[small_p]["plain_ms"],
                "ms_static": times[small_p]["ms_static"],
@@ -2569,7 +2818,32 @@ def main() -> int:
                "bound_ms": bound_p2["bound_ms"],
                "bound_by": bound_p2["bound_by"],
                "bound_share": bound_p2["bound_ms"] / times[small_p]["ms"]},
-    }]})
+    }]
+    for prec in ("default", "highest"):
+        row = schemes[prec][big]
+        entries.append({
+            "name": KERNEL_NAMES[prec],
+            "route": "cuda",
+            "source": "abcsmc_tpu_torch/csrc/mixture_logsumexp.cu",
+            "replaces": "abcsmc_tpu/ops/pallas_kernels.py:48",
+            "precision": prec,
+            "launches": main_path[prec],
+            "max_abs_err": max(v for k, v in errs.items() if prec in k),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "bound_share": row["bound_share"],
+            "library_ms": None,
+            "shape": [n, m, p],
+            "bound_terms_ms": row["bound_terms_ms"],
+            "max_abs_err_f64_sampled": row["max_abs_err_f64_sampled"],
+            "by_shape": schemes[prec],
+        })
+    for e in entries:
+        check(e["launches"] > 0 or only,
+              f"{e['name']}: no main-path launch in this run")
+    emit({"kernels": entries})
     emit({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

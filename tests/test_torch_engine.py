@@ -162,8 +162,10 @@ def test_run_device_deterministic_and_memory_store():
 
 
 def test_every_weight_precision_runs_the_same_fp32_path():
-    """The TPU kernel's dot schemes (config ``weight_precision``) have no
-    counterpart in the port: every value gives the identical run."""
+    """On the CPU the config's ``weight_precision`` changes nothing, as
+    JAX's XLA path off the TPU ignores it: every value gives the identical
+    run. (On a card each value launches its own dot scheme of the kernel;
+    tests/test_torch_gpu.py holds each against its plain version.)"""
     posts = []
     for prec in ("high", "highest", "default"):
         a = _port(_cfg(n=600, sets=2, weight_precision=prec))

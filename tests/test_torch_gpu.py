@@ -9,9 +9,10 @@ without JAX; there, skip tests/conftest.py (which sets up JAX's CPU mesh):
 
 Tolerance: 2e-4 nats between the kernel and the FP32 plain version, the
 bound of tests/test_pallas_kernels.py (both use the expansion
-a.b - |a|^2/2 - |b|^2/2; the kernel forms it in 3xTF32 on tensor cores and
-sums ex2 terms, the plain version uses an FP32 matmul and exp, in another
-order). The hostile case is held to a float64 plain version."""
+a.b - |a|^2/2 - |b|^2/2; the kernel forms it in 3xTF32 or FP32 FMAs, or
+over bfloat16 operands in one BF16 pass, and sums ex2 terms, the plain
+version of the same scheme uses an FP32 matmul and exp, in another order).
+The hostile case is held to a float64 plain version."""
 
 import io
 import math
@@ -53,47 +54,105 @@ def _scaled(n, m, p, seed, dev):
     return a.contiguous(), b.contiguous(), lw
 
 
+@pytest.mark.parametrize("precision", kernels.PRECISIONS)
 @pytest.mark.parametrize("n,m,p", [(2048, 2048, 16), (5000, 3000, 6),
                                    (129, 70, 1), (300, 500, 64),
                                    (1, 100_000, 8), (4096, 4096, 80),
                                    (37, 1000, 1), (1000, 37, 30)])
-def test_kernel_matches_plain(cuda, n, m, p):
+def test_kernel_matches_plain(cuda, n, m, p, precision):
+    """Each scheme against its own plain version, K from 3 to 82: every
+    register instance and the L1 instance of each."""
     a, b, lw = _scaled(n, m, p, 11, cuda)
     before = kernels.mixture_logsumexp.launches
+    by_prec = dict(kernels.mixture_logsumexp.launches_by_precision)
     for mode in ("static", "online", "auto"):
-        got = kernels.mixture_logsumexp(a, b, lw, mode=mode)
+        got = kernels.mixture_logsumexp(a, b, lw, mode=mode,
+                                        precision=precision)
         torch.cuda.synchronize()
-        ref = kernels.mixture_logsumexp_reference(a, b, lw, mode=mode)
+        ref = kernels.mixture_logsumexp_reference(a, b, lw, mode=mode,
+                                                  precision=precision)
         assert bool(torch.isfinite(got).all()), mode
         assert float((got - ref).abs().max()) <= TOL, mode
     assert kernels.mixture_logsumexp.launches == before + 4
+    by_prec[precision] += 4
+    assert kernels.mixture_logsumexp.launches_by_precision == by_prec
 
 
-def test_kernel_underflow_auto_reruns_online(cuda):
+@pytest.mark.parametrize("precision", kernels.PRECISIONS)
+def test_kernel_schemes_at_main_path_shapes(cuda, precision):
+    """Each scheme within 2e-4 nats of its own plain version (auto) at the
+    shapes chip_smoke.py's kernel phase gives all three; "default" also
+    rounds: at least 10x farther from float64 than "high" at 50,000^2."""
+    errs = {}
+    for n, m, p in ((2048, 2048, 16), (50_000, 50_000, 6),
+                    (200_000, 50_000, 13)):
+        a, b, lw = _scaled(n, m, p, n + p, cuda)
+        got = kernels.mixture_logsumexp(a, b, lw, precision=precision)
+        ref = kernels.mixture_logsumexp_reference(a, b, lw,
+                                                  precision=precision)
+        assert float((got - ref).abs().max()) <= TOL, (n, m, p)
+        if n == 50_000:
+            pick = torch.arange(0, n, 25, device=cuda)
+            f64 = kernels.mixture_logsumexp_reference(
+                a[pick].double(), b.double(), lw.double())
+            errs = {pr: float((kernels.mixture_logsumexp(
+                a, b, lw, precision=pr)[pick].double() - f64).abs().max())
+                for pr in ("high", precision)}
+    assert errs[precision] <= (0.2 if precision == "default" else TOL)
+    if precision == "default":
+        assert errs["default"] >= 10 * errs["high"], errs
+
+
+@pytest.mark.parametrize("precision", kernels.PRECISIONS)
+def test_kernel_graph_capture_equals_eager(cuda, precision):
+    """One auto call of each scheme captured into a CUDA graph and
+    replayed on new inputs copied into the captured ones: bit-equal to the
+    eager call on those inputs."""
+    static = list(_scaled(2048, 2048, 16, 1, cuda))
+    kernels.mixture_logsumexp(*static, precision=precision)   # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernels.mixture_logsumexp(*static, precision=precision)
+    fresh = _scaled(2048, 2048, 16, 2, cuda)
+    for dst, src in zip(static, fresh):
+        dst.copy_(src)
+    graph.replay()
+    eager = kernels.mixture_logsumexp(*fresh, precision=precision)
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("precision", ["high", "highest"])
+def test_kernel_underflow_auto_reruns_online(cuda, precision):
     b = torch.zeros((16, 2), device=cuda)
     lw = torch.full((16,), math.log(1.0 / 16), device=cuda)
     a = torch.cat([torch.zeros((3, 2), device=cuda),
                    torch.full((1, 2), 1e4, device=cuda)])
-    static = kernels.mixture_logsumexp(a, b, lw, mode="static")
+    kw = dict(precision=precision)
+    static = kernels.mixture_logsumexp(a, b, lw, mode="static", **kw)
     assert bool(torch.isneginf(static[3]))
     before = kernels.mixture_logsumexp.launches
-    auto = kernels.mixture_logsumexp(a, b, lw, mode="auto")
+    auto = kernels.mixture_logsumexp(a, b, lw, mode="auto", **kw)
     # static pass, then the online pass the device flag lets run
     assert kernels.mixture_logsumexp.launches == before + 2
-    online = kernels.mixture_logsumexp(a, b, lw, mode="online")
+    online = kernels.mixture_logsumexp(a, b, lw, mode="online", **kw)
     assert torch.equal(auto, online)
     np.testing.assert_allclose(float(auto[3]), -1e8 + math.log(1.0 / 16),
                                rtol=1e-6)
 
 
-def test_kernel_true_neg_inf_weights(cuda):
+@pytest.mark.parametrize("precision", kernels.PRECISIONS)
+def test_kernel_true_neg_inf_weights(cuda, precision):
     a, b, lw = _scaled(700, 900, 5, 3, cuda)
     lw = lw.clone()
     lw[450:] = -math.inf
     for mode in ("static", "online", "auto"):
-        got = kernels.mixture_logsumexp(a, b, lw, mode=mode)
+        got = kernels.mixture_logsumexp(a, b, lw, mode=mode,
+                                        precision=precision)
         sub = kernels.mixture_logsumexp(a, b[:450].contiguous(),
-                                        lw[:450].contiguous(), mode=mode)
+                                        lw[:450].contiguous(), mode=mode,
+                                        precision=precision)
         torch.cuda.synchronize()
         assert bool(torch.isfinite(got).all()), mode
         assert float((got - sub).abs().max()) <= TOL, mode
@@ -108,10 +167,12 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         kernels.mixture_logsumexp(a, a, torch.zeros(8, device=cuda))
 
 
-def test_kernel_hostile_coordinates_match_float64(cuda):
+@pytest.mark.parametrize("precision", ["high", "highest"])
+def test_kernel_hostile_coordinates_match_float64(cuda, precision):
     """Coordinates up to 6 kernel sd, where a.b - |a|^2/2 - |b|^2/2 cancels
     most: each query sits within ~1 sd of its parent center, as in an SMC
-    state. All modes within 2e-4 nats of a float64 plain version."""
+    state. All modes of the two full-precision schemes within 2e-4 nats of
+    a float64 plain version."""
     n = m = 20_000
     p = 16
     rng = np.random.default_rng(5)
@@ -124,19 +185,22 @@ def test_kernel_hostile_coordinates_match_float64(cuda):
     ref = kernels.mixture_logsumexp_reference(
         *(x.double() for x in t32), mode="online")
     for mode in ("static", "online", "auto"):
-        got = kernels.mixture_logsumexp(*t32, mode=mode)
+        got = kernels.mixture_logsumexp(*t32, mode=mode, precision=precision)
         assert float((got.double() - ref).abs().max()) <= TOL, mode
 
 
-def test_kernel_auto_makes_no_host_sync(cuda):
+@pytest.mark.parametrize("precision", kernels.PRECISIONS)
+def test_kernel_auto_makes_no_host_sync(cuda, precision):
     a, b, lw = _scaled(2048, 2048, 16, 4, cuda)
-    kernels.mixture_logsumexp(a, b, lw)     # build and load outside
+    # build and load outside
+    kernels.mixture_logsumexp(a, b, lw, precision=precision)
     torch.cuda.synchronize()
     before = kernels.mixture_logsumexp.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         for mode in ("auto", "static", "online"):
-            kernels.mixture_logsumexp(a, b, lw, mode=mode)
+            kernels.mixture_logsumexp(a, b, lw, mode=mode,
+                                      precision=precision)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert kernels.mixture_logsumexp.launches == before + 4
@@ -188,10 +252,14 @@ def test_generation_step_cuda_matches_cpu(cuda):
                                rtol=1e-3)
 
 
-def test_run_device_on_cuda_launches_the_kernel(cuda):
+@pytest.mark.parametrize("precision", kernels.PRECISIONS)
+def test_run_device_on_cuda_launches_the_kernel(cuda, precision):
+    """Every weighted set's kernel call runs the config's weight_precision
+    scheme (the fused route replays it from the captured graph)."""
     npar, nmet = 6, 13
     obs = np.full(nmet, 0.5)
     raw = {"smc_iterations": 3, "num_samples": 4096,
+           "weight_precision": precision,
            "predictive_prior_fraction": 0.1,
            "parameters": [{"name": f"p{i}", "dist_type": "UNIFORM",
                            "num_type": "FLOAT", "par1": 0.0, "par2": 1.0}
@@ -201,9 +269,14 @@ def test_run_device_on_cuda_launches_the_kernel(cuda):
     a = AbcSmc(raw, device="cuda",
                simulator=make_linear_gaussian_simulator(npar, nmet))
     kernels.mixture_logsumexp.launches = 0
+    for k in kernels.PRECISIONS:
+        kernels.mixture_logsumexp.launches_by_precision[k] = 0
     with redirect_stderr(io.StringIO()):
         a.run_device(seed=0)
     assert kernels.mixture_logsumexp.launches >= 2
+    assert kernels.mixture_logsumexp.launches_by_precision == {
+        k: kernels.mixture_logsumexp.launches if k == precision else 0
+        for k in kernels.PRECISIONS}
     pars, w = a.posterior()
     assert np.isfinite(pars).all() and np.isfinite(w).all()
     gens = [e for e in a.timings if e["op"] == "device_generation"]
@@ -228,10 +301,14 @@ def test_host_loop_on_cuda_launches_the_kernel(cuda):
     through the kernel (2 launches per auto call)."""
     a = AbcSmc(_gauss_cfg(4000, 3), device="cuda")
     kernels.mixture_logsumexp.launches = 0
+    highest = kernels.mixture_logsumexp.launches_by_precision["highest"]
     with redirect_stderr(io.StringIO()):
         a.run(seed=0)
-    # passes 2 and 3 weigh set 1, pass 3 also set 2: three auto calls
+    # passes 2 and 3 weigh set 1, pass 3 also set 2: three auto calls,
+    # of the FP32 FMA scheme ("highest", JAX's default for the host brain)
     assert kernels.mixture_logsumexp.launches == 6
+    assert (kernels.mixture_logsumexp.launches_by_precision["highest"]
+            == highest + 6)
     pars, w = a.posterior()
     assert np.isfinite(pars).all() and np.isfinite(w).all()
     assert abs(float(pars[:, 0].mean()) - 2.0) < 0.5
@@ -799,13 +876,14 @@ def test_split_override_holds_at_every_split(cuda):
     a, b, lw = _scaled(k, k, 6, 3, cuda)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for mode in ("static", "online"):
-        base = kernels.mixture_logsumexp(a, b, lw, mode=mode)
+        base = kernels.mixture_logsumexp(a, b, lw, mode=mode,
+                                         precision="high")
         own = kernels.launch_plan(k, k, 6, sms, mode != "static").n_split
         assert torch.equal(kernels.mixture_logsumexp(
-            a, b, lw, mode=mode, n_split=own), base)
+            a, b, lw, mode=mode, precision="high", n_split=own), base)
         for ask in split_points(k)[1:]:
             got = kernels.mixture_logsumexp(a, b, lw, mode=mode,
-                                            n_split=ask)
+                                            precision="high", n_split=ask)
             err = sampled_error_f64(a, b, lw, got, 2048, mode=mode)
             assert err <= TOL, (mode, ask, err)
 

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from abcsmc_tpu_torch.ops import kernels
 from abcsmc_tpu_torch.tools import (
     _common, bench_weight_kernel, calibration_study, quickstart_chip,
     stat_validate, sweep_weight_kernel,
@@ -98,7 +99,11 @@ def _bench_weight_kernel(lines):
 
 def _sweep_weight_kernel(lines):
     asked = [r["n_split_asked"] for r in lines if "n_split_asked" in r]
-    assert asked == sweep_weight_kernel.split_points(500) * 2
+    # every split point for each mode of each dot scheme
+    assert asked == sweep_weight_kernel.split_points(500) * 2 * 3
+    assert [r["precision"] for r in lines if "n_split_asked" in r] == [
+        prec for prec in kernels.PRECISIONS
+        for _ in range(2 * len(sweep_weight_kernel.split_points(500)))]
 
 
 def _calibration_study(lines):
