@@ -1,50 +1,59 @@
 """Time the weight kernel on the card, beside its plain version, the weight
 stage around it and, optionally, an earlier build of the kernel.
 
-    python -m abcsmc_tpu_torch.bench_kernel [--baseline OLD.cu] [--out F]
+    python -m abcsmc_tpu_torch.bench_kernel [--baseline OLD.cu]
+        [--shapes 50000x50000x6,...] [--out F]
 
-For each main-path shape (2,048^2 x 16, the dengue_surrogate keep; and
-50,000^2 x 6, the 1M cell's keep), each dot scheme ("highest", "high",
-"default") and each mode it prints one JSON line:
-CUDA-event milliseconds per call (mean over ``--reps`` calls after a
-warm-up), the max abs difference from the scheme's plain version, the
-scheme's bound (:func:`kernel_bound_ms`), and the weight stage
+For each shape (by default 2,048^2 x 16, the dengue_surrogate keep;
+50,000^2 x 6, the 1M cell's keep; 52,429^2 x 2, sir_1m's keep; and
+200,000 x 50,000 x 13), each dot scheme ("highest", "high", "default")
+and each mode it prints one JSON line: CUDA-event milliseconds per call
+(mean over ``--reps`` calls after a warm-up), the max abs difference from
+the scheme's plain version, the scheme's bound (:func:`kernel_bound_ms`)
+with the issue-slot floor beside it (``issue_model_ms``, a model term,
+not part of the bound and not a measured time), and the weight stage
 (``weights.weight_predictive_prior`` with a flat prior: scaling, kernel at
-the host brain's "highest", normalisation). ``--baseline`` takes a source
-with the first port's
-C interface (``mixture_logsumexp_f32(a, b, lw_shift, max_lw, part_max,
-part_sum, out, n, m, p, n_split, centers_per_split, online, stream)``),
-builds it with the same nvcc flags and times it through that interface's
-own wrapper logic, in turns with the current kernel's 3xTF32 scheme (old,
-new, new, old).
-Needs a CUDA device; exits 2 without one.
+the host brain's "highest", normalisation). ``--baseline`` takes an
+earlier source of ``csrc/mixture_logsumexp.cu``, builds it with the same
+nvcc flags and times it in turns with the current kernel (old, new, new,
+old), through the wrapper of the ``kernels.py`` that lies beside it (the
+same commit's ``ops/kernels.py``: its launch plan, its C interface, its
+auto; :func:`baseline_kernels`), or through the tree's own wrapper where
+none does (an edited copy of the current source), every scheme that
+wrapper has ("high" alone before the schemes). Needs a CUDA device; exits
+2 without one.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
+import functools
+import importlib.util
 import json
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from abcsmc_tpu_torch.ops import kernels, weights
-from abcsmc_tpu_torch.ops._build import load_library
+from abcsmc_tpu_torch.ops import _build, kernels, weights
 
-SHAPES = ((2048, 2048, 16), (50_000, 50_000, 6))
+SHAPES = ((2048, 2048, 16), (50_000, 50_000, 6), (52_429, 52_429, 2),
+          (200_000, 50_000, 13))
 MODES = ("auto", "static", "online")
 # Dense peaks of one H100 SXM per SM and clock: the special-function unit
 # issues 16 ex2 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput, compute capability 9.0), the FP32 pipe 128 FFMA, the tensor
 # cores 1,024 TF32 and 2,048 BF16 FMAs in mma (NVIDIA H100 data sheet: 495
-# and 989 dense TFLOP/s over 132 SMs at 1.83 GHz); HBM 3.35 TB/s.
+# and 989 dense TFLOP/s over 132 SMs at 1.83 GHz); HBM 3.35 TB/s. Each of
+# the SM's four schedulers issues one warp-instruction a clock: 128
+# thread-instructions per SM and clock.
 SFU_PER_SM_CLOCK = 16
 FFMA_PER_SM_CLOCK = 128
 TF32_FMA_PER_SM_CLOCK = 1024
 BF16_FMA_PER_SM_CLOCK = 2048
+ISSUE_PER_SM_CLOCK = 128
 HBM_BYTES = 3.35e12
 
 
@@ -81,6 +90,25 @@ def dot_fmas(p: int, precision: str) -> tuple:
     raise ValueError(f"unknown precision {precision!r}")
 
 
+def issue_per_logit(p: int, precision: str) -> float:
+    """Thread-instructions a logit issues at the least: its ex2, the FADD
+    that adds it to its row sum, and the dot: K = p + 2 FP32 operations
+    for "highest", or the scheme's mma instructions over padded K, each a
+    warp's (32 threads') issue for a 16 x 8 tile of 128 logits: 3 per
+    k-step of 8 for "high", 1 per k-step of 16 for "default". For
+    "highest" that is (K + 2) / 128 SM-clocks a logit."""
+    k = p + 2
+    if precision == "highest":
+        dot = k
+    elif precision == "high":
+        dot = 3 * -(-k // 8) * 32 / 128
+    elif precision == "default":
+        dot = -(-k // 16) * 32 / 128
+    else:
+        raise ValueError(f"unknown precision {precision!r}")
+    return 2 + dot
+
+
 def kernel_bound_ms(n, m, p, precision="high", *, device=0):
     """The least time the card could take for one call at n x m x p in the
     scheme ``precision``: the largest of its operations over their peak
@@ -91,7 +119,10 @@ def kernel_bound_ms(n, m, p, precision="high", *, device=0):
     reports as the card's maximum SM clock, from the per-SM per-clock
     rates above; every term is returned in ``terms_ms``, with the dot as
     the kernel issues it over padded K (``<dot>_padded_k``), which is
-    printed beside the bound and not part of it."""
+    printed beside the bound and not part of it. ``issue_model_ms`` is the
+    issue-slot floor (:func:`issue_per_logit` over ``ISSUE_PER_SM_CLOCK``),
+    a model term beside the bound: neither part of it nor a measured
+    time."""
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"],
@@ -108,6 +139,8 @@ def kernel_bound_ms(n, m, p, precision="high", *, device=0):
     worst = max(terms, key=terms.get)
     terms[f"{dot}_padded_k"] = issued * n * m / (rate * per_ms)
     return {"bound_ms": terms[worst], "terms_ms": terms,
+            "issue_model_ms": (issue_per_logit(p, precision) * n * m
+                               / (ISSUE_PER_SM_CLOCK * per_ms)),
             "bound_by": "bytes" if worst == "bytes" else "operations",
             "precision": precision, "sm_clock_mhz": mhz, "sms": sms}
 
@@ -149,52 +182,48 @@ def weight_inputs(n, m, p, seed, dev):
     return params, prev, torch.as_tensor(w / w.sum(), **f32), dv
 
 
-def first_port_runner(src: str):
-    """A callable (a, b, log_w, mode) running ``src`` through the first
-    port's wrapper logic: the clamp, max_lw and shift as torch ops, a
-    device-properties query per launch, and auto as static plus a host
-    all-finite check and an online rerun."""
-    fn = load_library("baseline_mixture_logsumexp", src).mixture_logsumexp_f32
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.restype = ci
-    fn.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+def baseline_kernels(src):
+    """An earlier build of the kernel, to time in turns with the current
+    one: the module ``kernels.py`` beside ``src`` (an earlier
+    ``csrc/mixture_logsumexp.cu``; both from one commit, ``git show``), or
+    the tree's own ``ops/kernels.py`` where there is none, loaded apart
+    from the package's, its C entry bound to the library built from
+    ``src``. Its wrapper runs as that commit shipped it."""
+    src = Path(src)
+    path = src.with_name("kernels.py")
+    if not path.exists():
+        path = Path(kernels.__file__)
+    spec = importlib.util.spec_from_file_location("baseline_kernels", path)
+    old = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(old)
+    bind = old._library   # loads "mixture_logsumexp" through _build
 
-    def launch(a, b, shift, max_lw, online):
-        n, p = a.shape
-        m = b.shape[0]
-        sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-        q_blocks = -(-n // 128)
-        n_split = max(1, min(-(-4 * sms // q_blocks), -(-m // 64)))
-        cps = -(-m // n_split)
-        n_split = -(-m // cps)
-        out = torch.empty((n,), dtype=torch.float32, device=a.device)
-        psum = torch.empty((n_split, n), dtype=torch.float32, device=a.device)
-        pmax = torch.empty_like(psum) if online else psum
-        err = fn(a.data_ptr(), b.data_ptr(), shift.data_ptr(),
-                 max_lw.data_ptr(), pmax.data_ptr(), psum.data_ptr(),
-                 out.data_ptr(), n, m, p, n_split, cps, int(online),
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"baseline kernel: cudaError {err}")
-        return out
+    @functools.lru_cache(maxsize=None)
+    def library():
+        real = _build.load_library
+        _build.load_library = lambda name: real(f"baseline_{name}", src)
+        try:
+            return bind()
+        finally:
+            _build.load_library = real
 
-    def run(a, b, log_w, mode):
-        lw = torch.clamp_min(log_w, kernels.NEG_INF)
-        max_lw = kernels._max_lw(lw).reshape(1)
-        shift = (lw - max_lw).contiguous()
-        if mode == "online":
-            return launch(a, b, shift, max_lw, True)
-        out = launch(a, b, shift, max_lw, False)
-        if mode == "static" or bool(torch.isfinite(out).all()):
-            return out
-        return launch(a, b, shift, max_lw, True)
+    old._library = library
+    return old
 
-    return run
+
+def parse_shapes(text: str) -> tuple:
+    """"50000x50000x6,2048x2048x16" -> ((50000, 50000, 6), (2048, 2048,
+    16))."""
+    return tuple(tuple(int(x) for x in part.split("x"))
+                 for part in text.split(",") if part)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", help="source of an earlier kernel build")
+    ap.add_argument("--shapes", type=parse_shapes, default=SHAPES,
+                    help="n x m x p shapes, comma-separated "
+                         "(default: %(default)s)")
     ap.add_argument("--out", help="also write the JSON lines to this file")
     ap.add_argument("--reps", type=int, default=0,
                     help="calls per timing (default 20 small, 10 large)")
@@ -208,8 +237,10 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
     ).stdout.strip()
     lines = [{"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}]
-    old = first_port_runner(args.baseline) if args.baseline else None
-    for n, m, p in SHAPES:
+    old = baseline_kernels(args.baseline) if args.baseline else None
+    # a wrapper from before the schemes runs "high" and takes no precision
+    old_schemes = getattr(old, "PRECISIONS", ("high",)) if old else ()
+    for n, m, p in args.shapes:
         params, prev, w, dv = weight_inputs(n, m, p, n + p, dev)
         a, b, _ = weights._prep_scaled(params, prev, dv)
         a, b = a.contiguous(), b.contiguous()
@@ -224,8 +255,10 @@ def main(argv=None) -> int:
                 a, b, lw, mode=mode, precision=prec)
             row["max_abs_err"] = float((new() - ref).abs().max())
             row.update(kernel_bound_ms(n, m, p, prec))
-            if old is not None and prec == "high":
-                prv = lambda: old(a, b, lw, mode)  # noqa: E731
+            if prec in old_schemes:
+                kw = {"precision": prec} if hasattr(old, "PRECISIONS") else {}
+                prv = lambda: old.mixture_logsumexp(  # noqa: E731
+                    a, b, lw, mode=mode, **kw)
                 row["baseline_max_abs_err"] = float((prv() - ref).abs().max())
                 t = [cuda_ms(f, reps) for f in (prv, new, new, prv)]
                 row["baseline_ms"] = [t[0], t[3]]

@@ -34,10 +34,10 @@
 //   minus max_lw in FP32; log2(e) and the headroom are applied to the
 //   accumulator (one FFMA per logit), not folded into the operands, where
 //   a bf16 column near 64 would carry an ulp of 0.5.
-// - FFMA (full FP32; "highest"): the TPU's 6-pass full-f32 product. Each
-//   thread forms its accumulator entries (the mma fragment coordinates)
-//   by p+2 FFMAs over HIGH's log2-unit operands, unsplit: a_aug rows in
-//   registers, b_aug from shared memory in plain [k][center] order.
+// - FFMA (full FP32; "highest"): the TPU's 6-pass full-f32 product
+//   (_dot_logits "highest", Mosaic's six bf16 passes), here FP32 FMAs on
+//   the CUDA cores in log2 units, unsplit; a kernel of its own, laid out
+//   as an SGEMM (see "The FFMA program" below).
 //
 // What bounds it: one exponential per logit. At 50,000 x 50,000 that is
 // 2.5e9 ex2 on the special-function units, 16 per SM per clock: 132 SMs x
@@ -45,7 +45,7 @@
 // FMAs per logit for HIGH (1,024 per SM per clock), 16 ceil((p+2)/16)
 // BF16 FMAs for BF16 (2,048) and p+2 FFMAs for FFMA (128); the inputs are
 // 2.4 MB (~1 us at 3.35 TB/s). So the design keeps every other pipe below
-// the SFU where it can (FFMA at p+2 >= 16 cannot):
+// the SFU where it can (FFMA at p+2 > 8 cannot):
 //
 // - ex2.approx.ftz on the pre-scaled logits (one MUFU op, no range
 //   reduction); the log is finished as log2 x ln 2.
@@ -61,11 +61,11 @@
 //   row, then launches ONLINE, which returns at once unless the flag is
 //   up: the TPU wrapper's lax.cond rerun, with no host sync.
 // - The query operands stay in registers for the whole kernel when K is
-//   small (HIGH K <= 32, BF16 K <= 32, FFMA K <= 24); the b_aug tiles are
-//   written once, in the scheme's order, by the prologue and stream
-//   through shared memory with cp.async, double buffered, so tile t+1
-//   loads while tile t multiplies and exponentiates. For larger K both
-//   operands come through L1 instead.
+//   small (HIGH K <= 32, BF16 K <= 32; FFMA stages them in shared memory);
+//   the b_aug tiles are written once, in the scheme's order, by the
+//   prologue and stream through shared memory with cp.async, double
+//   buffered, so tile t+1 loads while tile t multiplies and
+//   exponentiates. For larger K both operands come through L1 instead.
 // - The center axis is split across blockIdx.y (at keep 2,048 there are only
 //   16 query blocks for 132 SMs); the last block of each query block to
 //   finish merges the splits' partials (an arrival counter, no extra pass).
@@ -74,6 +74,42 @@
 // per-block maxima of the live log-weights, b_aug; the clamp and the max_lw
 // rule are the TPU wrapper's, pallas_kernels.py:209-215) and the partial
 // kernel(s).
+//
+// The FFMA program. Its dot is p+2 FP32 operations a logit against the
+// SFU's one ex2: at 128 FP32 operations and 16 ex2 per SM and clock the
+// two pipes tie at p = 6, and the FP32 pipe bounds it above. Each logit
+// also issues its ex2 and the FADD of its row sum, so the SM's issue
+// slots (4 warp-instructions a clock) hold it to about (p+2)/(p+4) of the
+// bound. The design gives the issue slots to those instructions alone:
+// - SGEMM form: each thread owns an 8-row x 8-center micro-tile of the
+//   block's 128 rows x 64-center stage, 64 independent accumulators. Per
+//   column k, two LDS.128 of a (rows 4rg.. and 64+4rg.. of row group rg:
+//   one address per row group, a broadcast) and two of b (centers 4cg..
+//   and 32+4cg..: the eight center groups of a quarter warp on distinct
+//   banks) feed 64 FFMAs.
+// - No column of ones: a stage holds b's p columns (times log2(e)) and
+//   the column constant cb = log2(e) (lw - |b|^2/2) (for a dead center
+//   the sentinel log2(e) x -1e30, exact FP32); each accumulator starts at
+//   ca_i + cb_j, ca = log2(e) (-|a|^2/2 - max_lw) + 64, and adds the p
+//   products in column order. Rounding order: fl(ca + cb), then one
+//   fused multiply-add for each column k = 0 .. p-1. A logit is p FFMAs
+//   and one FADD, and with its row sum's FADD exactly the p+2 FP32
+//   operations the bound counts.
+// - a is staged once per block in shared memory, [column][row], for
+//   p < 24 (at most 11.5 KB); b's stages stream through two cp.async
+//   buffers. For p >= 24 the KS = 0 instance streams a's and b's columns
+//   through shared memory in chunks of 16, so any p runs without a global
+//   load per logit.
+// - Per stage, the epilogue takes ex2 of the 64 logits and sums them per
+//   row; ONLINE keeps HIGH's lazy max (kTau) with one vote per micro-tile.
+//   The eight threads that share a row group are eight lanes of one warp
+//   and merge by shuffles; the split merge is the other schemes'.
+// On an H100 this reaches about half the bound at p = 6 and 62 % at
+// p = 13 (PERF.md): with its ex2s taken out the same FFMA and FADD stream
+// runs at 69-77 % of the FP32 pipe's peak, and the ex2s, which share the
+// warps' issue slots, overlap it only in part. Variants that kept a or b
+// in registers, interleaved one row half's ex2s with the other half's
+// FFMAs, or ran 8 x 4 tiles at higher occupancy were all slower.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,6 +124,8 @@ constexpr int kRows = 4 * 16 * kMT;  // query rows per block
 constexpr int kStageTiles = 8;     // n8 tiles per stage
 constexpr int kStageCenters = 8 * kStageTiles;
 constexpr int kPrologueThreads = 256;
+constexpr int kMicro = 8;          // FFMA: rows and centers of a thread's tile
+constexpr int kChunk = 16;         // FFMA KS = 0: columns per shared chunk
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF sentinel
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -101,17 +139,18 @@ constexpr unsigned kFull = 0xffffffffu;
 
 enum Scheme { kHigh = 0, kBf16 = 1, kFfma = 2 };
 
-// The largest KS whose query operands a scheme keeps in registers (HIGH
-// and BF16: k-steps of 8 and 16; FFMA: chunks of 8 columns). Above it the
-// KS = 0 instance reads them through L1.
+// The largest KS whose query operands a scheme keeps on chip for the whole
+// kernel (HIGH and BF16: in registers, k-steps of 8 and 16; FFMA: in
+// shared memory, KS = ceil((p+1)/8)). Above it the KS = 0 instance reads
+// them through L1 (HIGH, BF16) or in chunks of kChunk columns (FFMA).
 __host__ __device__ constexpr int max_reg_ks(int scheme) {
   return scheme == kHigh ? 4 : scheme == kBf16 ? 2 : 3;
 }
 
 // float4s of shared memory in one stage buffer of the KS > 0 instance: a
 // stage of 64 centers' b_aug at up to its register k-steps (FFMA: up to 8
-// KS columns). The stage's own size (stage_f4) comes from the launch plan
-// (ops/kernels.py); a larger one is refused.
+// KS rows, b's p columns and cb). The stage's own size (stage_f4) comes
+// from the launch plan (ops/kernels.py); a larger one is refused.
 __host__ __device__ constexpr int stage_capacity_f4(int scheme, int ks) {
   return kStageTiles * ks * (scheme == kHigh ? 32 : 16);
 }
@@ -162,7 +201,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // Column `col` of row `r` of a_aug = [a, ca, 1, 0...] (ca in the scheme's
-// units: log2 with headroom for HIGH and FFMA, natural for BF16).
+// units: log2 with headroom for HIGH, natural for BF16).
 __device__ __forceinline__ float a_aug(const float* __restrict__ a, int r,
                                        int col, int n, int p, float ca) {
   if (col < p) return r < n ? a[(size_t)r * p + col] : 0.f;
@@ -180,8 +219,10 @@ __device__ __forceinline__ float a_aug(const float* __restrict__ a, int r,
 // - BF16: m16n8k16 B-fragment order: lane (g, t) of k-step s holds
 //   {B[16s + 2t][g], B[16s + 2t + 1][g]} and {B[16s + 2t + 8][g],
 //   B[16s + 2t + 9][g]} as two bf16x2; natural units.
-// - FFMA: center c of a stage holds B[k][c] at k * 64 + c, K = ks = p + 2;
-//   log2 units.
+// - FFMA: center c of a stage holds B[k][c] at k * 64 + c for ks = p + 1
+//   rows: log2(e) b in rows k < p, cb = log2(e) (lw - |b|^2/2) in row p
+//   (no row of ones: see the FFMA program); a dead center's row p is the
+//   FP32 sentinel log2(e) x -1e30.
 // Stage st (centers 64 st ..) starts stage_f4 float4s after stage st - 1;
 // the orders above are those within a stage (nt: the n8 tile in it).
 __global__ void __launch_bounds__(kPrologueThreads)
@@ -243,9 +284,16 @@ prologue_kernel(const float* __restrict__ b, const float* __restrict__ log_w,
       const float v = b[(size_t)j * p + c];
       bsq = fmaf(v, v, bsq);
     }
+  if (scheme == kFfma) {
+    float* const col = stage + j % kStageCenters;
+    for (int k = 0; k < p; ++k)
+      col[k * kStageCenters] = live ? kLog2e * b[(size_t)j * p + k] : 0.f;
+    col[p * kStageCenters] =
+        live ? kLog2e * fmaf(-0.5f, bsq, lw) : kNegInf * kLog2e;
+    return;
+  }
   const float sentinel = __uint_as_float(to_tf32(kNegInf * kLog2e));
-  const int kmax = scheme == kHigh ? 8 * ks : ks;
-  for (int k = 0; k < kmax; ++k) {
+  for (int k = 0; k < 8 * ks; ++k) {
     float v;
     if (!live) {
       v = k == p + 1 ? sentinel : 0.f;
@@ -255,10 +303,6 @@ prologue_kernel(const float* __restrict__ b, const float* __restrict__ log_w,
       v = 1.f;
     } else {
       v = k == p + 1 ? kLog2e * fmaf(-0.5f, bsq, lw) : 0.f;
-    }
-    if (scheme == kFfma) {
-      stage[k * kStageCenters + j % kStageCenters] = v;
-      continue;
     }
     uint32_t hi, lo;
     split_tf32(v, hi, lo);
@@ -314,6 +358,51 @@ struct PartialArgs {
   float* out;          // [n]
 };
 
+// max_lw: the largest live log-weight, 0 when there is none (warp 0 of the
+// block writes it to *dst)
+__device__ __forceinline__ void block_max_lw(const PartialArgs& A, int lane,
+                                             float* dst) {
+  float mx = -INFINITY;
+  for (int i = lane; i < A.n_lwmax; i += 32) mx = fmaxf(mx, A.lwmax[i]);
+  for (int o = 16; o > 0; o >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+  if (lane == 0) *dst = isfinite(mx) ? mx : 0.f;
+}
+
+// Once each block has written its partial (max, sum) per row: the last of
+// the n_split blocks of query block blockIdx.x to arrive merges them and
+// writes out[] (no separate combine launch), one row per thread.
+template <bool ONLINE>
+__device__ __forceinline__ void merge_splits(const PartialArgs& A,
+                                             float max_lw, bool* s_last) {
+  const int n = A.n;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    *s_last = atomicAdd(&A.arrivals[blockIdx.x], 1) == A.n_split - 1;
+  __syncthreads();
+  if (!*s_last) return;
+  __threadfence();
+  if (threadIdx.x == 0) A.arrivals[blockIdx.x] = 0;  // for the next pass
+  const int row = blockIdx.x * kRows + threadIdx.x;
+  if (row >= n) return;
+  float m = 0.f;  // STATIC: the max is the a-priori bound, 0 after shift
+  if (ONLINE) {
+    m = -INFINITY;
+    for (int k = 0; k < A.n_split; ++k)
+      m = fmaxf(m, __ldcg(A.part_max + (size_t)k * n + row));
+  }
+  float s = 0.f;
+  for (int k = 0; k < A.n_split; ++k) {
+    const size_t o = (size_t)k * n + row;
+    s += ONLINE ? __ldcg(A.part_sum + o) * ex2(__ldcg(A.part_max + o) - m)
+                : __ldcg(A.part_sum + o);
+  }
+  const float v = (m - kHeadroom + log2f(s)) * kLn2 + max_lw;
+  A.out[row] = v;
+  if (A.flag_out != nullptr && !isfinite(v)) *A.flag_out = 1;
+}
+
 // One hi.hi product of k-step s on top of d: into d itself for the first
 // k-step (d then holds only the small terms), else into a fresh accumulator
 // added in FP32. The tensor cores align each sum to its largest term and
@@ -332,16 +421,15 @@ __device__ __forceinline__ void hi_step(float (&d)[4], const uint32_t (&hi)[4],
   }
 }
 
-// KS > 0: the query operands in registers (HIGH: K = 8 KS; BF16: K <= 16
-// KS; FFMA: K <= 8 KS), b_aug stages through shared memory (cp.async, two
+// HIGH and BF16. KS > 0: the query operands in registers (HIGH: K = 8 KS;
+// BF16: K <= 16 KS), b_aug stages through shared memory (cp.async, two
 // buffers). KS == 0: any K, both operands read through L1. Each block
-// writes its partial (max, sum) per row; the last of the n_split blocks of
-// a query block to arrive merges them and writes out[] (no separate
-// combine launch).
+// writes its partial (max, sum) per row, then merge_splits.
 template <int SCHEME, int KS, bool ONLINE>
 __global__ void __launch_bounds__(kThreads)
 mixture_partial_kernel(const PartialArgs A) {
   static_assert(kRows == kThreads, "the merge takes one row per thread");
+  static_assert(SCHEME != kFfma, "FFMA is ffma_partial_kernel");
   static_assert(KS <= max_reg_ks(SCHEME), "KS beyond the register path");
   constexpr int kStage = KS == 0 ? 1 : stage_capacity_f4(SCHEME, KS);
   __shared__ __align__(16) float4 sb[KS > 0 ? 2 : 1][kStage];
@@ -351,16 +439,9 @@ mixture_partial_kernel(const PartialArgs A) {
   if (A.gate != nullptr && *A.gate == 0) return;  // auto: nothing to rerun
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int n = A.n, p = A.p, K = p + 2;
+  const int n = A.n, p = A.p;
 
-  // max_lw: the largest live log-weight, 0 when there is none
-  if (warp == 0) {
-    float mx = -INFINITY;
-    for (int i = lane; i < A.n_lwmax; i += 32) mx = fmaxf(mx, A.lwmax[i]);
-    for (int o = 16; o > 0; o >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
-    if (lane == 0) s_max_lw = isfinite(mx) ? mx : 0.f;
-  }
+  if (warp == 0) block_max_lw(A, lane, &s_max_lw);
 
   const int st_begin = blockIdx.y * A.stages_per_split;
   const int st_end = min(A.n_stages, st_begin + A.stages_per_split);
@@ -431,25 +512,17 @@ mixture_partial_kernel(const PartialArgs A) {
   };
   constexpr int kRegHigh = SCHEME == kHigh && KS > 0 ? KS : 1;
   constexpr int kRegBf16 = SCHEME == kBf16 && KS > 0 ? KS : 1;
-  constexpr int kRegFfma = SCHEME == kFfma && KS > 0 ? 8 * KS : 1;
   uint32_t ahi[kRegHigh][kMT][4], alo[kRegHigh][kMT][4];
   uint32_t abf[kRegBf16][kMT][4];
-  float af[kMT][2][kRegFfma];
   if constexpr (KS > 0) {
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt) {
       if constexpr (SCHEME == kHigh) {
 #pragma unroll
         for (int s = 0; s < KS; ++s) a_frag(s, mt, ahi[s][mt], alo[s][mt]);
-      } else if constexpr (SCHEME == kBf16) {
-#pragma unroll
-        for (int s = 0; s < KS; ++s) a_frag_bf16(s, mt, abf[s][mt]);
       } else {
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int k = 0; k < 8 * KS; ++k)
-            af[mt][h][k] = a_aug(A.a, r[mt][h], k, n, p, ca[mt][h]);
+        for (int s = 0; s < KS; ++s) a_frag_bf16(s, mt, abf[s][mt]);
       }
     }
   }
@@ -515,7 +588,7 @@ mixture_partial_kernel(const PartialArgs A) {
         for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
           for (int i = 0; i < 4; ++i) d[mt][i] += dl[mt][i];
-      } else if constexpr (SCHEME == kBf16) {
+      } else {  // BF16
         const uint2* tile2 = reinterpret_cast<const uint2*>(tile);
         if constexpr (KS > 0) {
 #pragma unroll
@@ -542,35 +615,6 @@ mixture_partial_kernel(const PartialArgs A) {
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             d[mt][i] = fmaf(d[mt][i], kLog2e, kHeadroom);
-      } else {  // FFMA: rows g, g+8 of each m-tile x columns 2t, 2t+1
-        const float2* tile2 = reinterpret_cast<const float2*>(tile);
-        if constexpr (KS > 0) {
-#pragma unroll
-          for (int k = 0; k < 8 * KS; ++k) {
-            if (k >= K) break;
-            const float2 bv = tile2[k * (kStageCenters / 2) + nt * 4 + t];
-#pragma unroll
-            for (int mt = 0; mt < kMT; ++mt) {
-              d[mt][0] = fmaf(af[mt][0][k], bv.x, d[mt][0]);
-              d[mt][1] = fmaf(af[mt][0][k], bv.y, d[mt][1]);
-              d[mt][2] = fmaf(af[mt][1][k], bv.x, d[mt][2]);
-              d[mt][3] = fmaf(af[mt][1][k], bv.y, d[mt][3]);
-            }
-          }
-        } else {
-          for (int k = 0; k < K; ++k) {
-            const float2 bv = tile2[k * (kStageCenters / 2) + nt * 4 + t];
-#pragma unroll
-            for (int mt = 0; mt < kMT; ++mt) {
-              const float x0 = a_aug(A.a, r[mt][0], k, n, p, ca[mt][0]);
-              const float x1 = a_aug(A.a, r[mt][1], k, n, p, ca[mt][1]);
-              d[mt][0] = fmaf(x0, bv.x, d[mt][0]);
-              d[mt][1] = fmaf(x0, bv.y, d[mt][1]);
-              d[mt][2] = fmaf(x1, bv.x, d[mt][2]);
-              d[mt][3] = fmaf(x1, bv.y, d[mt][3]);
-            }
-          }
-        }
       }
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
@@ -604,37 +648,241 @@ mixture_partial_kernel(const PartialArgs A) {
         if (ONLINE) A.part_max[o] = m0;
       }
     }
-
-  // the last split block of this query block merges the splits
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    s_last = atomicAdd(&A.arrivals[blockIdx.x], 1) == A.n_split - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  if (threadIdx.x == 0) A.arrivals[blockIdx.x] = 0;  // for the next pass
-  const int row = blockIdx.x * kRows + threadIdx.x;
-  if (row >= n) return;
-  float m = 0.f;  // STATIC: the max is the a-priori bound, 0 after shift
-  if (ONLINE) {
-    m = -INFINITY;
-    for (int k = 0; k < A.n_split; ++k)
-      m = fmaxf(m, __ldcg(A.part_max + (size_t)k * n + row));
-  }
-  float s = 0.f;
-  for (int k = 0; k < A.n_split; ++k) {
-    const size_t o = (size_t)k * n + row;
-    s += ONLINE ? __ldcg(A.part_sum + o) * ex2(__ldcg(A.part_max + o) - m)
-                : __ldcg(A.part_sum + o);
-  }
-  const float v = (m - kHeadroom + log2f(s)) * kLn2 + max_lw;
-  A.out[row] = v;
-  if (A.flag_out != nullptr && !isfinite(v)) *A.flag_out = 1;
+  merge_splits<ONLINE>(A, max_lw, &s_last);
 }
 
-// The instance for kreg (the scheme's register k-steps): KS = kreg where
-// the scheme keeps the query operands in registers, else KS = 0.
+// FFMA micro-tile coordinates of a thread: row group rg = 4 warp + lane / 8
+// owns rows 4 rg + i and 64 + 4 rg + i (i < 4) of the block, center group
+// cg = lane % 8 centers 4 cg + j and 32 + 4 cg + j (j < 4) of a stage.
+__device__ __forceinline__ int micro_row(int rg, int i) {
+  return (i < 4 ? 0 : 64 - 4) + 4 * rg + i;
+}
+
+// One column k of the micro-tile: the 8 rows of a (sa_k = a's column k,
+// [row]) times the 8 centers of b (sb_k = b's column k, [center]).
+__device__ __forceinline__ void ffma_column(float (&d)[kMicro][kMicro],
+                                            const float* sa_k,
+                                            const float* sb_k, int rg,
+                                            int cg) {
+  const float4 a0 = *reinterpret_cast<const float4*>(sa_k + 4 * rg);
+  const float4 a1 = *reinterpret_cast<const float4*>(sa_k + 64 + 4 * rg);
+  const float4 b0 = *reinterpret_cast<const float4*>(sb_k + 4 * cg);
+  const float4 b1 = *reinterpret_cast<const float4*>(sb_k + 32 + 4 * cg);
+  const float av[kMicro] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+  const float bv[kMicro] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+  for (int i = 0; i < kMicro; ++i)
+#pragma unroll
+    for (int j = 0; j < kMicro; ++j) d[i][j] = fmaf(av[i], bv[j], d[i][j]);
+}
+
+// The micro-tile's logits into the per-thread, per-row state (accumulate's,
+// one vote per tile).
+template <bool ONLINE>
+__device__ __forceinline__ void ffma_epilogue(const float (&d)[kMicro][kMicro],
+                                              float (&mx)[kMicro],
+                                              float (&th)[kMicro],
+                                              float (&sm)[kMicro]) {
+  if (ONLINE) {
+    float top[kMicro];
+    bool up = false;
+#pragma unroll
+    for (int i = 0; i < kMicro; ++i) {
+      top[i] = fmaxf(fmaxf(fmaxf(d[i][0], d[i][1]), fmaxf(d[i][2], d[i][3])),
+                     fmaxf(fmaxf(d[i][4], d[i][5]), fmaxf(d[i][6], d[i][7])));
+      up |= top[i] > th[i];
+    }
+    if (__any_sync(kFull, up)) {
+#pragma unroll
+      for (int i = 0; i < kMicro; ++i)
+        if (top[i] > th[i]) {
+          sm[i] *= ex2(mx[i] - top[i]);
+          mx[i] = top[i];
+          th[i] = top[i] + kTau;
+        }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kMicro; ++i) {
+    float e[kMicro];
+#pragma unroll
+    for (int j = 0; j < kMicro; ++j)
+      e[j] = ex2(ONLINE ? d[i][j] - mx[i] : d[i][j]);
+    sm[i] += ((e[0] + e[1]) + (e[2] + e[3])) + ((e[4] + e[5]) + (e[6] + e[7]));
+  }
+}
+
+// FFMA ("highest"; see the FFMA program). KS > 0: a's p < 8 KS columns
+// staged in shared memory for the whole block, b's stages through two
+// cp.async buffers. KS == 0: any p, a's and b's columns through shared
+// memory in chunks of kChunk. Each block writes its partial (max, sum)
+// per row, then merge_splits.
+template <int KS, bool ONLINE>
+__global__ void __launch_bounds__(kThreads)
+ffma_partial_kernel(const PartialArgs A) {
+  static_assert(kRows == kThreads, "the merge and ca take one row a thread");
+  static_assert(kRows == 16 * kMicro && kStageCenters == 8 * kMicro,
+                "16 row groups x 8 center groups of 8 x 8");
+  static_assert(KS <= max_reg_ks(kFfma), "KS beyond the staged path");
+  static_assert(stage_capacity_f4(kFfma, 1) == kThreads,
+                "a stage is at most KS float4s a thread");
+  constexpr int kACols = KS > 0 ? 8 * KS - 1 : kChunk;
+  constexpr int kStage =
+      KS > 0 ? stage_capacity_f4(kFfma, KS) : kChunk * kStageCenters / 4;
+  __shared__ __align__(16) float sa[kACols * kRows];
+  __shared__ __align__(16) float4 sb[KS > 0 ? 2 : 1][kStage];
+  __shared__ __align__(16) float s_ca[kRows];
+  __shared__ float s_max_lw;
+  __shared__ bool s_last;
+
+  if (A.gate != nullptr && *A.gate == 0) return;  // auto: nothing to rerun
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = 4 * warp + (lane >> 3), cg = lane & 7;
+  const int n = A.n, p = A.p, base = blockIdx.x * kRows;
+
+  if (warp == 0) block_max_lw(A, lane, &s_max_lw);
+  const int st_begin = blockIdx.y * A.stages_per_split;
+  const int st_end = min(A.n_stages, st_begin + A.stages_per_split);
+  auto issue = [&](int st, int buf) {
+    if constexpr (KS > 0) {  // a stage is at most KS float4s a thread
+      const float4* src = A.bfrag + (size_t)st * A.stage_f4;
+#pragma unroll
+      for (int r = 0; r < KS; ++r) {
+        const int i = tid + r * kThreads;
+        if (i >= A.stage_f4) break;
+        const uint32_t dst =
+            static_cast<uint32_t>(__cvta_generic_to_shared(&sb[buf][i]));
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+                     "l"(src + i));
+      }
+      asm volatile("cp.async.commit_group;");
+    }
+  };
+  issue(st_begin, 0);
+  if constexpr (KS > 0) {  // a's rows, [column][row]; rows past n are 0
+    const float* src = A.a + (size_t)base * p;
+    for (int i = tid; i < kRows * p; i += kThreads) {
+      const int r = i / p;
+      sa[(i - r * p) * kRows + r] = base + r < n ? src[i] : 0.f;
+    }
+  }
+  __syncthreads();  // s_max_lw, sa
+  const float max_lw = s_max_lw;
+  {  // ca of row tid, its squares summed in column order
+    float sq = 0.f;
+    if (base + tid < n)
+      for (int k = 0; k < p; ++k) {
+        const float v = KS > 0 ? sa[k * kRows + tid]
+                               : A.a[(size_t)(base + tid) * p + k];
+        sq = fmaf(v, v, sq);
+      }
+    s_ca[tid] = fmaf(kLog2e, fmaf(-0.5f, sq, -max_lw), kHeadroom);
+  }
+  __syncthreads();
+  float ca[kMicro];
+#pragma unroll
+  for (int i = 0; i < kMicro; ++i) ca[i] = s_ca[micro_row(rg, i)];
+
+  float mx[kMicro], th[kMicro], sm[kMicro];
+#pragma unroll
+  for (int i = 0; i < kMicro; ++i) {
+    mx[i] = th[i] = -INFINITY;
+    sm[i] = 0.f;
+  }
+
+  for (int st = st_begin, it = 0; st < st_end; ++st, ++it) {
+    const float* tile;
+    if constexpr (KS > 0) {
+      if (st + 1 < st_end) {
+        issue(st + 1, (it + 1) & 1);
+        asm volatile("cp.async.wait_group 1;");
+      } else {
+        asm volatile("cp.async.wait_group 0;");
+      }
+      __syncthreads();
+      tile = reinterpret_cast<const float*>(sb[it & 1]);
+    } else {
+      tile = reinterpret_cast<const float*>(A.bfrag + (size_t)st * A.stage_f4);
+    }
+    // d = fl(ca + cb), then one FMA per column in column order
+    float d[kMicro][kMicro];
+    {
+      const float4 c0 =
+          *reinterpret_cast<const float4*>(tile + p * kStageCenters + 4 * cg);
+      const float4 c1 = *reinterpret_cast<const float4*>(
+          tile + p * kStageCenters + 32 + 4 * cg);
+      const float cb[kMicro] = {c0.x, c0.y, c0.z, c0.w,
+                                c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+      for (int i = 0; i < kMicro; ++i)
+#pragma unroll
+        for (int j = 0; j < kMicro; ++j) d[i][j] = ca[i] + cb[j];
+    }
+    if constexpr (KS > 0) {
+#pragma unroll
+      for (int k = 0; k < kACols; ++k) {
+        if (k == p) break;
+        ffma_column(d, sa + k * kRows, tile + k * kStageCenters, rg, cg);
+      }
+    } else {
+      float* const sbf = reinterpret_cast<float*>(sb[0]);
+      for (int c0 = 0; c0 < p; c0 += kChunk) {
+        const int kc = min(kChunk, p - c0);
+        __syncthreads();  // the last chunk is consumed
+        for (int i = tid; i < kc * kRows; i += kThreads) {
+          const int r = i / kc, k = i - r * kc;
+          sa[k * kRows + r] =
+              base + r < n ? A.a[(size_t)(base + r) * p + c0 + k] : 0.f;
+        }
+        for (int i = tid; i < kc * kStageCenters; i += kThreads)
+          sbf[i] = tile[c0 * kStageCenters + i];
+        __syncthreads();
+        for (int k = 0; k < kc; ++k)
+          ffma_column(d, sa + k * kRows, sbf + k * kStageCenters, rg, cg);
+      }
+    }
+    ffma_epilogue<ONLINE>(d, mx, th, sm);
+    if constexpr (KS > 0) __syncthreads();  // this buffer is refilled next
+  }
+
+  // merge the eight threads of each row (lanes 8 (lane / 8) ..), then one
+  // partial per (split, row)
+#pragma unroll
+  for (int i = 0; i < kMicro; ++i) {
+    float m0 = mx[i], s0 = sm[i];
+#pragma unroll
+    for (int o = 1; o <= 4; o <<= 1) {
+      const float m1 = __shfl_xor_sync(kFull, m0, o);
+      const float s1 = __shfl_xor_sync(kFull, s0, o);
+      if (ONLINE) {
+        const float mn = fmaxf(m0, m1);
+        s0 = s0 * ex2(m0 - mn) + s1 * ex2(m1 - mn);
+        m0 = mn;
+      } else {
+        s0 += s1;
+      }
+    }
+    const int row = base + micro_row(rg, i);
+    if (cg == 0 && row < n) {
+      const size_t o = (size_t)blockIdx.y * n + row;
+      A.part_sum[o] = s0;
+      if (ONLINE) A.part_max[o] = m0;
+    }
+  }
+  merge_splits<ONLINE>(A, max_lw, &s_last);
+}
+
+template <int SCHEME, int KS, bool ONLINE>
+void start_partial(dim3 grid, cudaStream_t s, const PartialArgs& A) {
+  if constexpr (SCHEME == kFfma)
+    ffma_partial_kernel<KS, ONLINE><<<grid, kThreads, 0, s>>>(A);
+  else
+    mixture_partial_kernel<SCHEME, KS, ONLINE><<<grid, kThreads, 0, s>>>(A);
+}
+
+// The instance for kreg (the scheme's register k-steps, FFMA's staged
+// 8-row groups): KS = kreg where the scheme keeps the query operands on
+// chip, else KS = 0.
 template <int SCHEME, bool ONLINE, int KS = 1>
 cudaError_t launch_partial(int kreg, dim3 grid, cudaStream_t s,
                            const PartialArgs& A) {
@@ -642,12 +890,12 @@ cudaError_t launch_partial(int kreg, dim3 grid, cudaStream_t s,
     if (kreg == KS) {
       if (A.stage_f4 > stage_capacity_f4(SCHEME, KS))
         return cudaErrorInvalidValue;
-      mixture_partial_kernel<SCHEME, KS, ONLINE><<<grid, kThreads, 0, s>>>(A);
+      start_partial<SCHEME, KS, ONLINE>(grid, s, A);
       return cudaGetLastError();
     }
     return launch_partial<SCHEME, ONLINE, KS + 1>(kreg, grid, s, A);
   } else {
-    mixture_partial_kernel<SCHEME, 0, ONLINE><<<grid, kThreads, 0, s>>>(A);
+    start_partial<SCHEME, 0, ONLINE>(grid, s, A);
     return cudaGetLastError();
   }
 }
@@ -670,8 +918,9 @@ cudaError_t launch_scheme(int scheme, dim3 grid, cudaStream_t s,
 // launch plan (ops/kernels.py::launch_plan): bfrag [n_stages * stage_f4
 // float4s], lwmax [prologue_blocks], part_max and part_sum [n_split, n],
 // arrivals [q_blocks] and flag [1] (int32). ks counts the scheme's
-// k-steps: of 8 columns (HIGH), 16 (BF16) or 1 (FFMA, ks = p+2); stage_f4
-// is the plan's size of one stage of 64 centers' b_aug, in float4s.
+// k-steps: of 8 columns (HIGH), 16 (BF16), or FFMA's rows of a stage,
+// which must be p+1 (b's p columns and cb); stage_f4 is the plan's size of
+// one stage of 64 centers' b_aug, in float4s.
 // mode: 0 static, 1 online, 2 auto (static pass that flags a non-finite
 // row, then an online pass that runs only if flagged: the TPU wrapper's
 // lax.cond, on the device). scheme: 0 HIGH (3xTF32), 1 BF16, 2 FFMA.
@@ -683,7 +932,8 @@ extern "C" int mixture_logsumexp_f32(
     float* out, int n, int m, int p, int ks, int stage_f4, int n_stages,
     int stages_per_split, int n_split, int prologue_blocks, int mode,
     int scheme, void* stream) {
-  if (scheme < kHigh || scheme > kFfma || stage_f4 < 1)
+  if (scheme < kHigh || scheme > kFfma || stage_f4 < 1 ||
+      (scheme == kFfma && ks != p + 1))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int q_blocks = (n + kRows - 1) / kRows;

@@ -48,6 +48,9 @@ _CSRC_SCHEME = {"high": 0, "default": 1, "highest": 2}
 # contraction columns per k-step: an mma.m16n8k8 (TF32), an mma.m16n8k16
 # (BF16), one FFMA
 _K_STEP = {"high": 8, "default": 16, "highest": 1}
+# columns a stage adds to b's p: [1, cb] for the mma schemes; cb alone for
+# FFMA, whose accumulators start at ca + cb (csrc, "The FFMA program")
+_AUG_COLS = {"high": 2, "default": 2, "highest": 1}
 # bytes the b_aug stage holds per center and padded column: a TF32 hi and
 # lo, a bfloat16, a float. The stage's size is decided here only: the plan
 # passes it to the C entry (csrc ``stage_f4``), which lays stages out at it
@@ -169,7 +172,9 @@ class LaunchPlan(NamedTuple):
     """How one call is cut into launches (all host integers).
 
     ``ks`` k-steps of ``k_step`` columns (8 for "high", 16 for "default",
-    1 for "highest") cover the augmented width p+2; the centers are padded
+    1 for "highest") cover a stage's width, p+2 for the mma schemes (b's
+    columns, a column of ones and cb) and p+1 for "highest" (no column of
+    ones; its k-steps are a stage's rows); the centers are padded
     to ``n_stages`` stages of 64, and split ``y`` of the partial kernel's
     grid ``(q_blocks, n_split)`` takes stages
     ``[y * stages_per_split, min(n_stages, (y + 1) * stages_per_split))``.
@@ -239,7 +244,7 @@ def launch_plan(n: int, m: int, p: int, sms: int, online: bool, *,
     count is trimmed so that none is empty; the cap is not applied.
     ``precision`` sets the k-step and the b_aug stage's size."""
     _check_precision(precision)
-    ks = -(-(p + 2) // _K_STEP[precision])
+    ks = -(-(p + _AUG_COLS[precision]) // _K_STEP[precision])
     n_stages = -(-m // _STAGE_CENTERS)
     q_blocks = -(-n // _ROWS)
     if n_split is None:

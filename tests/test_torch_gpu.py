@@ -206,6 +206,120 @@ def test_kernel_auto_makes_no_host_sync(cuda, precision):
     assert kernels.mixture_logsumexp.launches == before + 4
 
 
+# p on both sides of each edge of the FFMA program's instances ("highest":
+# KS = ceil((p + 1) / 8) keeps a in shared memory up to p = 23, the KS = 0
+# instance streams it in chunks of 16 columns above)
+FFMA_EDGES = (1, 2, 6, 7, 8, 13, 14, 15, 16, 22, 23, 24, 30, 80)
+
+
+def _near(n, m, p, seed, dev):
+    """An SMC-like state at width p: centers uniform on [-1, 1]^p, each
+    query half a kernel sd from a center, normalised weights. Each row's
+    terms stay within float32's normal range at any p, so the static plain
+    version is exact to float32 there; _scaled's spread at p = 80 puts
+    whole rows 100-160 nats down, where the static float32 plain version
+    loses its terms to denormals and underflow (the kernel, with its
+    headroom, holds them, or gives -inf as the TPU kernel does)."""
+    rng = np.random.default_rng(seed)
+    b = rng.uniform(-1, 1, (m, p))
+    a = b[rng.integers(0, m, n)] + 0.5 * rng.normal(size=(n, p))
+    w = rng.uniform(0.5, 1.5, m)
+    return [torch.as_tensor(x, dtype=torch.float32, device=dev)
+            for x in (a, b, np.log(w / w.sum()))]
+
+
+@pytest.mark.parametrize("p", FFMA_EDGES)
+def test_highest_at_every_instance_edge(cuda, p):
+    """"highest" within 2e-4 nats of its plain version in each mode, on
+    ragged n and m (no multiple of the 128-row block or the 64-center
+    stage; one row; one center); four "highest" launches per three
+    calls and none of another scheme."""
+    for n, m in ((300, 517), (1, 65), (129, 1), (2085, 2113)):
+        a, b, lw = _near(n, m, p, n + m + p, cuda)
+        want = dict(kernels.mixture_logsumexp.launches_by_precision)
+        for mode in ("static", "online", "auto"):
+            got = kernels.mixture_logsumexp(a, b, lw, mode=mode,
+                                            precision="highest")
+            torch.cuda.synchronize()
+            ref = kernels.mixture_logsumexp_reference(a, b, lw, mode=mode)
+            assert bool(torch.isfinite(got).all()), (n, m, mode)
+            assert float((got - ref).abs().max()) <= TOL, (n, m, mode)
+        want["highest"] += 4
+        assert kernels.mixture_logsumexp.launches_by_precision == want
+
+
+@pytest.mark.parametrize("p", [6, 16, 30])
+def test_highest_sentinel_and_dead_weights(cuda, p):
+    """Weights at the finite -1e30 sentinel and at -inf beside live ones:
+    within 2e-4 nats of the plain version in each mode. Every weight dead
+    (max_lw 0): static -inf in every row, as the plain version; online and
+    auto the sentinel, -1e30 to float32 rounding (rtol 1e-6: an ulp of
+    1e30 is 7.6e22, no absolute bound in nats applies)."""
+    a, b, lw = _scaled(700, 900, p, 5, cuda)
+    lw = lw.clone()
+    lw[::3] = -math.inf
+    lw[1::7] = -1e30
+    dead = torch.full_like(lw, -math.inf)
+    for mode in ("static", "online", "auto"):
+        got = kernels.mixture_logsumexp(a, b, lw, mode=mode,
+                                        precision="highest")
+        ref = kernels.mixture_logsumexp_reference(a, b, lw, mode=mode)
+        assert bool(torch.isfinite(got).all()), mode
+        assert float((got - ref).abs().max()) <= TOL, mode
+        got = kernels.mixture_logsumexp(a, b, dead, mode=mode,
+                                        precision="highest")
+        ref = kernels.mixture_logsumexp_reference(a, b, dead, mode=mode)
+        if mode == "static":
+            assert bool(torch.isneginf(got).all())
+            assert bool(torch.isneginf(ref).all())
+        else:
+            torch.testing.assert_close(got, ref, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("p", [6, 13, 30])
+def test_highest_split_forced_to_one_and_to_every_stage(cuda, p):
+    """``n_split`` 1 (one block sums all 79 stages) and 79 (one stage a
+    split): within 2e-4 nats of the plain version in each mode."""
+    a, b, lw = _scaled(2085, 5000, p, 9, cuda)
+    for n_split in (1, -(-5000 // 64)):
+        for mode in ("static", "online", "auto"):
+            got = kernels.mixture_logsumexp(a, b, lw, mode=mode,
+                                            precision="highest",
+                                            n_split=n_split)
+            ref = kernels.mixture_logsumexp_reference(a, b, lw, mode=mode)
+            assert float((got - ref).abs().max()) <= TOL, (n_split, mode)
+
+
+@pytest.mark.parametrize("p", [6, 13, 22, 30])
+def test_highest_auto_makes_no_host_sync_in_any_instance(cuda, p):
+    a, b, lw = _scaled(2048, 2048, p, 4, cuda)
+    kernels.mixture_logsumexp(a, b, lw)   # build and load outside
+    torch.cuda.synchronize()
+    before = kernels.mixture_logsumexp.launches_by_precision["highest"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kernels.mixture_logsumexp(a, b, lw, mode="auto")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (kernels.mixture_logsumexp.launches_by_precision["highest"]
+            == before + 2)
+
+
+def test_highest_refuses_a_stage_of_the_old_width(cuda, monkeypatch):
+    """The C entry lays "highest" stages out at p + 1 rows only: a plan
+    of the earlier width (p + 2 rows, a column of ones as the mma schemes
+    keep) is refused with cudaErrorInvalidValue, before any launch."""
+    a, b, lw = _scaled(300, 500, 6, 1, cuda)
+    monkeypatch.setitem(kernels._AUG_COLS, "highest", 2)
+    kernels.launch_plan.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match=r"cudaError 1 "):
+            kernels.mixture_logsumexp(a, b, lw, mode="auto",
+                                      precision="highest")
+    finally:
+        kernels.launch_plan.cache_clear()
+
+
 def test_generation_step_cuda_matches_cpu(cuda):
     """The f32 step on the card (kernel weights) and on the CPU (plain
     weights), same data and draws: same survivors, close weights."""

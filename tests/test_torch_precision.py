@@ -193,21 +193,22 @@ def test_host_brain_and_density_default_run_highest(recorded):
     assert recorded == ["highest"]
 
 
-@pytest.mark.parametrize("prec,k_step,nbytes", [
-    ("high", 8, 8), ("default", 16, 2), ("highest", 1, 4),
+@pytest.mark.parametrize("prec,k_step,nbytes,width", [
+    ("high", 8, 8, 2), ("default", 16, 2, 2), ("highest", 1, 4, 1),
 ])
-def test_launch_plan_per_scheme(prec, k_step, nbytes):
-    """The k-step and the b_aug stage of each scheme: K = p+2 padded to 8
-    (3xTF32, a TF32 hi and lo per column) or 16 (BF16, one bfloat16), or
-    unpadded (FFMA, one float); a stage is whole float4s (the C entry
-    takes its size in float4s); the first workspace segment holds every
-    stage, and the other segments follow it as for "high"."""
+def test_launch_plan_per_scheme(prec, k_step, nbytes, width):
+    """The k-step and the b_aug stage of each scheme: K = p+2 (b, a column
+    of ones and cb) padded to 8 (3xTF32, a TF32 hi and lo per column) or
+    16 (BF16, one bfloat16), or p+1 rows unpadded (FFMA, one float: b and
+    cb, its accumulators start at ca + cb); a stage is whole float4s (the
+    C entry takes its size in float4s); the first workspace segment holds
+    every stage, and the other segments follow it as for "high"."""
     for n, m, p in ((2048, 2048, 16), (50_000, 50_000, 6), (37, 1000, 1),
                     (4096, 4096, 80)):
         plan = kernels.launch_plan(n, m, p, 132, True, precision=prec)
-        ks = -(-(p + 2) // k_step)
+        ks = -(-(p + width) // k_step)
         assert (plan.k_step, plan.ks, plan.precision) == (k_step, ks, prec)
-        assert plan.k_pad == k_step * ks >= p + 2
+        assert plan.k_pad == k_step * ks >= p + width
         assert 4 * plan.stage_floats == 64 * plan.k_pad * nbytes
         assert plan.stage_floats % 4 == 0
         assert plan.offsets[1] >= plan.n_stages * plan.stage_floats
