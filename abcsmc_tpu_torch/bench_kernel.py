@@ -1,27 +1,47 @@
 """Time the weight kernel on the card, beside its plain version, the weight
 stage around it and, optionally, an earlier build of the kernel.
 
-    python -m abcsmc_tpu_torch.bench_kernel [--baseline OLD.cu]
-        [--shapes 50000x50000x6,...] [--out F]
+    python -m abcsmc_tpu_torch.bench_kernel [--baseline OLD.cu [--turns K]]
+        [--shapes 50000x50000x6,...] [--reps N] [--profile]
+        [--host-parts] [--out F]
 
-For each shape (by default 2,048^2 x 16, the dengue_surrogate keep;
-50,000^2 x 6, the 1M cell's keep; 52,429^2 x 2, sir_1m's keep; and
-200,000 x 50,000 x 13), each dot scheme ("highest", "high", "default")
-and each mode it prints one JSON line: CUDA-event milliseconds per call
-(mean over ``--reps`` calls after a warm-up), the max abs difference from
-the scheme's plain version, the scheme's bound (:func:`kernel_bound_ms`)
+For each shape (by default the shipped survivor keeps 205^2 x 2 (sir,
+lv), 410^2 x 3 (ricker), 2,048^2 x 16 (dengue_surrogate), 10,000 x 5,000
+x 6 and 10,000^2 x 6 (``tools.validate``, ``bench_extra``); 50,000^2 x 6,
+the 1M cell's keep; 52,429^2 x 2, sir_1m's keep; and 200,000 x 50,000 x
+13), each dot scheme ("highest", "high", "default") and each mode it
+prints one JSON line with three times per call: ``ms``, CUDA events
+around ``--reps`` back-to-back eager calls after a warm-up (at small
+shapes the host's enqueue pace sets it); ``device_ms``, the same calls
+captured once into a CUDA graph and replayed, events around the replays
+(the kernels' own time, without the Python wrapper; :func:`graph_ms`);
+``host_us``, the host clock around ``--reps`` enqueues with no sync
+(:func:`host_us`). Beside them: the max abs difference from the scheme's
+plain version, the kernels one call launched as the C entry counts them
+(``launches_per_call``; the plan's count as ``plan_launches_per_call``),
+the scheme's bound (:func:`kernel_bound_ms`)
 with the issue-slot floor beside it (``issue_model_ms``, a model term,
 not part of the bound and not a measured time), and the weight stage
 (``weights.weight_predictive_prior`` with a flat prior: scaling, kernel at
 the host brain's "highest", normalisation). ``--baseline`` takes an
 earlier source of ``csrc/mixture_logsumexp.cu``, builds it with the same
 nvcc flags and times it in turns with the current kernel (old, new, new,
-old), through the wrapper of the ``kernels.py`` that lies beside it (the
+old, for each of the three times; ``--turns K`` rounds of that, with the
+median, least and largest of each time as ``<time>_spread``, and
+``<time>_wins``, the adjacent old and new readings in which the new one
+is lower) and prints the max abs difference
+between its output and the tree's on the same inputs
+(``baseline_max_abs_diff``, 0 where both run one plan and one
+arithmetic), through the wrapper of the ``kernels.py`` that lies beside it (the
 same commit's ``ops/kernels.py``: its launch plan, its C interface, its
 auto; :func:`baseline_kernels`), or through the tree's own wrapper where
 none does (an edited copy of the current source), every scheme that
-wrapper has ("high" alone before the schemes). Needs a CUDA device; exits
-2 without one.
+wrapper has ("high" alone before the schemes). ``--profile`` adds each
+kernel's device microseconds a launch from a torch.profiler trace
+(``kernel_us``: prologue, static and online passes). ``--host-parts``
+adds, per shape, the host microseconds of each piece of the wrapper's
+enqueue path beside the earlier wrapper's (:func:`host_parts_us`). Needs
+a CUDA device; exits 2 without one.
 """
 
 from __future__ import annotations
@@ -32,6 +52,7 @@ import importlib.util
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -39,8 +60,9 @@ import torch
 
 from abcsmc_tpu_torch.ops import _build, kernels, weights
 
-SHAPES = ((2048, 2048, 16), (50_000, 50_000, 6), (52_429, 52_429, 2),
-          (200_000, 50_000, 13))
+SHAPES = ((205, 205, 2), (410, 410, 3), (2048, 2048, 16),
+          (10_000, 5_000, 6), (10_000, 10_000, 6), (50_000, 50_000, 6),
+          (52_429, 52_429, 2), (200_000, 50_000, 13))
 MODES = ("auto", "static", "online")
 # Dense peaks of one H100 SXM per SM and clock: the special-function unit
 # issues 16 ex2 (CUDA C++ Programming Guide, arithmetic instruction
@@ -70,6 +92,165 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps: int, replays: int = 5) -> float:
+    """Mean device milliseconds per call: ``reps`` calls captured once into
+    a CUDA graph (after a warm-up call on the capture's side stream), the
+    graph replayed once to warm it, then CUDA events around ``replays``
+    replays. Without the Python wrapper's host time between launches, this
+    is what the kernels themselves take, launch gaps inside the graph
+    included."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del graph
+    return t0.elapsed_time(t1) / (replays * reps)
+
+
+def host_us(fn, reps: int) -> float:
+    """Mean host microseconds to enqueue one call: ``time.perf_counter``
+    around ``reps`` calls with no sync (after a warm-up call and a sync;
+    the card's queue is not full at these counts), then a sync outside
+    the clock."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e6 / reps
+
+
+def kernel_us(fn, calls: int = 10) -> dict:
+    """Device microseconds a launch of each kernel of ``fn``'s call, and
+    its launches a call, from a torch.profiler trace of the card around
+    ``calls`` calls (after one untimed session that starts the tracer):
+    {kernel: [launches a call, us a launch]}, keyed "prologue", "static"
+    and "online" (the partial kernel's pass)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]):
+        fn()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if "prologue_kernel" in ev.key:
+            name = "prologue"
+        elif "partial_kernel" in ev.key:
+            # the template's ONLINE argument: <SCHEME, KS, ONLINE, ...> for
+            # the mma kernel, <KS, ONLINE, ...> for the FFMA kernel
+            args = ev.key.split("partial_kernel<")[1].split(">")[0]
+            online = args.split(",")[2 if "mixture" in ev.key else 1]
+            name = "online" if "true" in online else "static"
+        else:
+            continue
+        total = getattr(ev, "device_time_total", None)
+        if total is None:
+            total = ev.cuda_time_total
+        n_prev, t_prev = out.get(name, (0, 0.0))
+        out[name] = (n_prev + ev.count, t_prev + total)
+    return {k: [n / calls, t / n] for k, (n, t) in out.items()}
+
+
+def three_times(fn, reps: int) -> dict:
+    """``ms``, ``device_ms`` and ``host_us`` of one call (see the module
+    docstring)."""
+    return {"ms": cuda_ms(fn, reps), "device_ms": graph_ms(fn, reps),
+            "host_us": host_us(fn, reps)}
+
+
+def spread(xs) -> dict:
+    """Median, least and largest of a list of readings."""
+    return {"median": float(np.median(xs)), "min": min(xs), "max": max(xs)}
+
+
+def measured_launches(fn) -> int:
+    """Kernels one call of ``fn`` launched, the prologue counted, as the
+    C entry counts them (``kernels.kernel_launches`` around the call)."""
+    before = kernels.kernel_launches()
+    fn()
+    return kernels.kernel_launches() - before
+
+
+def host_parts_us(a, b, lw, old, reps: int = 2000, rounds: int = 5) -> dict:
+    """Host microseconds a call of each piece of the wrapper's enqueue
+    path in the tree (``new``) and in ``old``'s wrapper (an earlier
+    ``kernels.py``, :func:`baseline_kernels`; ``old`` None: the tree's own
+    pieces only), at one auto "highest" call's shape, the median of
+    ``rounds`` rounds of ``reps`` calls: the input check; the plan and the
+    C entry's arguments; the output and workspace allocations; the
+    current stream's handle; the current-device test or switch."""
+    n, p = a.shape
+    m, dev, idx = b.shape[0], a.device, a.device.index
+    call = kernels._call_of(n, m, p, idx, "auto", "highest", None)
+    sms = kernels._sm_count(idx)
+
+    def old_plan():   # the earlier wrapper's plan and argument lines
+        plan = kernels.launch_plan(n, m, p, sms, True, precision="highest")
+        offs = tuple(4 * o for o in plan.offsets)
+        return offs, (n, m, p, plan.ks, plan.stage_floats // 4,
+                      plan.n_stages, plan.stages_per_split, plan.n_split,
+                      plan.prologue_blocks, 2, 2)
+
+    def switch():
+        with torch.cuda.device(dev):
+            pass
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    ws = call.floats - n
+    pieces = {
+        "check": {"new": lambda: kernels._check_cuda_inputs(a, b, lw)},
+        "plan_and_ints": {
+            "new": lambda: kernels._call_of(n, m, p, idx, "auto", "highest",
+                                            None),
+            "old": old_plan},
+        "alloc": {"new": lambda: torch.empty((call.floats,), **f32),
+                  "old": lambda: (torch.empty((max(ws, 1),), **f32),
+                                  torch.empty((n,), **f32))},
+        "stream": {
+            "new": lambda: torch._C._cuda_getCurrentRawStream(idx),
+            "old": lambda: torch.cuda.current_stream(dev).cuda_stream},
+        "device": {"new": lambda: torch.cuda.current_device() == idx,
+                   "private": lambda: torch._C._cuda_getDevice() == idx,
+                   "old": switch},
+    }
+    if old is not None:
+        pieces["check"]["old"] = lambda: old._check_cuda_inputs(a, b, lw)
+    out = {}
+    for name, alts in pieces.items():
+        res = {k: [] for k in alts}
+        for _ in range(rounds):
+            for k, fn in alts.items():
+                fn()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                res[k].append((time.perf_counter() - t0) * 1e6 / reps)
+        out[name] = {k: float(np.median(v)) for k, v in res.items()}
+    return out
 
 
 def dot_fmas(p: int, precision: str) -> tuple:
@@ -226,7 +407,16 @@ def main(argv=None) -> int:
                          "(default: %(default)s)")
     ap.add_argument("--out", help="also write the JSON lines to this file")
     ap.add_argument("--reps", type=int, default=0,
-                    help="calls per timing (default 20 small, 10 large)")
+                    help="calls per timing (default 100 small, 10 large)")
+    ap.add_argument("--profile", action="store_true",
+                    help="add each kernel's device us a launch "
+                         "(torch.profiler; kernel_us)")
+    ap.add_argument("--turns", type=int, default=1,
+                    help="with --baseline: rounds of old, new, new, old "
+                         "(default 1); medians and spreads beside them")
+    ap.add_argument("--host-parts", action="store_true",
+                    help="add the host us of each piece of the wrapper's "
+                         "enqueue path (auto, highest; host_parts_us)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_kernel: needs a CUDA device", file=sys.stderr)
@@ -245,7 +435,7 @@ def main(argv=None) -> int:
         a, b, _ = weights._prep_scaled(params, prev, dv)
         a, b = a.contiguous(), b.contiguous()
         lw = torch.log(w)
-        reps = args.reps or (20 if n < 10_000 else 10)
+        reps = args.reps or (100 if n < 10_000 else 10)
         for mode, prec in ((x, y) for y in kernels.PRECISIONS
                            for x in MODES):
             row = {"shape": [n, m, p], "mode": mode, "precision": prec}
@@ -255,21 +445,50 @@ def main(argv=None) -> int:
                 a, b, lw, mode=mode, precision=prec)
             row["max_abs_err"] = float((new() - ref).abs().max())
             row.update(kernel_bound_ms(n, m, p, prec))
+            row["launches_per_call"] = measured_launches(new)
+            row["plan_launches_per_call"] = kernels.launches_per_call(
+                n, m, p, mode, precision=prec)
             if prec in old_schemes:
                 kw = {"precision": prec} if hasattr(old, "PRECISIONS") else {}
                 prv = lambda: old.mixture_logsumexp(  # noqa: E731
                     a, b, lw, mode=mode, **kw)
-                row["baseline_max_abs_err"] = float((prv() - ref).abs().max())
-                t = [cuda_ms(f, reps) for f in (prv, new, new, prv)]
-                row["baseline_ms"] = [t[0], t[3]]
-                row["ms"] = [t[1], t[2]]
+                got_old = prv()
+                row["baseline_max_abs_err"] = float(
+                    (got_old - ref).abs().max())
+                row["baseline_max_abs_diff"] = float(
+                    (got_old - new()).abs().max())
+                t = [three_times(f, reps)
+                     for f in (prv, new, new, prv) * args.turns]
+                for key in ("ms", "device_ms", "host_us"):
+                    row["baseline_" + key] = [x[key] for x in t[0::4]
+                                              + t[3::4]]
+                    row[key] = [x[key] for x in t[1::4] + t[2::4]]
+                    if args.turns > 1:
+                        row["baseline_" + key + "_spread"] = spread(
+                            row["baseline_" + key])
+                        row[key + "_spread"] = spread(row[key])
+                        # adjacent (old, new) readings in which new is lower
+                        row[key + "_wins"] = sum(
+                            x > y for x, y in zip(row["baseline_" + key],
+                                                  row[key]))
             else:
-                row["ms"] = [cuda_ms(new, reps)]
+                t = three_times(new, reps)
+                for key in ("ms", "device_ms", "host_us"):
+                    row[key] = [t[key]]
+            if args.profile:
+                row["kernel_us"] = kernel_us(new)
+                if prec in old_schemes:
+                    row["baseline_kernel_us"] = kernel_us(prv)
             row["plain_ms"] = cuda_ms(
                 lambda: kernels.mixture_logsumexp_reference(
                     a, b, lw, mode=mode, precision=prec), reps)
             lines.append(row)
             print(json.dumps(row), flush=True)
+        if args.host_parts:
+            parts = {"shape": [n, m, p], "host_parts_us": host_parts_us(
+                a, b, lw, old if "highest" in old_schemes else None)}
+            lines.append(parts)
+            print(json.dumps(parts), flush=True)
         flat = lambda th: torch.zeros(th.shape[0], device=dev)  # noqa: E731
         # the host brain's weight stage: its kernel runs "highest"
         stage = {"shape": [n, m, p], "weight_stage_ms": cuda_ms(

@@ -8,7 +8,8 @@ Builds each source with the port's nvcc flags plus ``-Xptxas -v`` into
 ``build/sass/``, reads ptxas's lines for each kernel (registers, bytes of
 static shared memory, stack, spill stores and loads), disassembles the
 build with ``cuobjdump -sass`` and counts each kernel's instructions by
-class (FFMA, FADD, FMNMX, MUFU, LDS, LDG, HMMA, other), over the whole
+class (FFMA, FADD, FMNMX, MUFU, LDS, LDG, HMMA; STL and LDL, the local
+memory a spill goes to; CALL; other), over the whole
 kernel and over its hot loop: the loop (a backward branch and its
 target) that holds the most MUFUs, the shortest of those. In a static
 instance each logit takes one MUFU.EX2 in that loop, so the loop's counts
@@ -33,7 +34,8 @@ from pathlib import Path
 
 from abcsmc_tpu_torch.ops import _build
 
-CLASSES = ("FFMA", "FADD", "FMNMX", "MUFU", "LDS", "LDG", "HMMA")
+CLASSES = ("FFMA", "FADD", "FMNMX", "MUFU", "LDS", "LDG", "HMMA", "STL",
+           "LDL", "CALL")
 _INSN = re.compile(
     r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)"
     r"([^;]*);")

@@ -30,15 +30,28 @@ an online rerun of the whole call if any row came out non-finite). The
 kernel decides the rerun on the device, as the TPU's ``lax.cond`` does: the
 static pass raises a flag, and the online pass is always launched but
 returns at once unless the flag is up. No mode syncs the host.
+
+At up to ``_FOLD_MAX_CENTERS`` centers (the shipped examples' keeps,
+102-410) a call is folded (:func:`launch_plan`): no prologue, each partial
+block builds its stages from ``b`` and ``log_w`` and takes ``max_lw``
+itself, the center splits of a query block are one thread-block cluster
+that merges over distributed shared memory, so a static or online call is
+one kernel launch and an auto call two (above it: the prologue, then one
+or two). Up to ``_SHORT_MAX_CENTERS`` (dengue's 2,048, the tools' 5,000
+and 10,000) an unfolded call takes short splits: at most
+``_SHORT_MAX_SPLIT`` of them, and a prologue block a stage.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import re
 from typing import NamedTuple
 
 import torch
+
+from abcsmc_tpu_torch.ops._build import CSRC
 
 NEG_INF = -1e30
 MODES = ("auto", "static", "online")
@@ -62,6 +75,36 @@ _PROLOGUE_THREADS = 256    # centers per prologue block (csrc)
 _BLOCKS_PER_SM = 32        # partial-kernel blocks the split aims for per SM
 _MAX_SPLIT_STAGES = 2048   # stages (131,072 centers) one split sums at most
 _REF_BLOCK = 2048          # centers per block of the plain version
+
+
+def _source_limits(path=CSRC / "mixture_logsumexp.cu"):
+    """The kernel source's limits of the folded call: the splits of one
+    cluster (csrc kMaxCluster), and for each scheme the largest p whose
+    stage the folded instances build, b's p columns and the scheme's
+    added ones in the largest KS that keeps the query operands on chip
+    (csrc max_reg_ks, fold_max_p: KS k-steps of 8 or 16 columns,
+    "highest"'s KS groups of 8 stage rows). Read from the source text,
+    which the C entry checks every call against."""
+    text = path.read_text()
+    split = int(re.search(r"constexpr int kMaxCluster = (\d+);", text)[1])
+    ks = re.search(r"return scheme == kHigh \? (\d+) : scheme == kBf16 \? "
+                   r"(\d+) : (\d+);", text)
+    cols = {"high": 8 * int(ks[1]), "default": 16 * int(ks[2]),
+            "highest": 8 * int(ks[3])}
+    return split, {prec: c - _AUG_COLS[prec] for prec, c in cols.items()}
+
+
+# The folded call (csrc, "The folded call"): at most this many centers (8
+# stages, one cluster: the keeps at which it read faster than the
+# unfolded call on an H100, PERF.md), splits and parameters (from the
+# kernel source, :func:`_source_limits`).
+_FOLD_MAX_CENTERS = 512
+_FOLD_MAX_SPLIT, _FOLD_MAX_P = _source_limits()
+# Short splits: up to this many centers an unfolded call takes at most
+# _SHORT_MAX_SPLIT splits (fewer, longer splits than _BLOCKS_PER_SM asks
+# for) and a prologue block a stage (more blocks than 256 centers each)
+_SHORT_MAX_CENTERS = 16_384
+_SHORT_MAX_SPLIT = 16
 
 
 def _max_lw(lw):
@@ -182,7 +225,12 @@ class LaunchPlan(NamedTuple):
     scheme's layout (``stage_floats`` words each), the prologue's
     per-block maxima, the per-split partial sums and maxima, the
     per-query-block arrival counters and the rerun flag (int32), each
-    starting at an offset in ``offsets`` (multiples of 4 words)."""
+    starting at an offset in ``offsets`` (multiples of 4 words).
+
+    A folded plan (``folded``: ``prologue_blocks`` 0) has no prologue and
+    at most ``_FOLD_MAX_SPLIT`` splits (its stages), one cluster a query
+    block; its only workspace is the last segment, one int32 flag per
+    (query block, split) for auto's rerun, every other segment empty."""
     ks: int
     n_stages: int
     stages_per_split: int
@@ -204,6 +252,10 @@ class LaunchPlan(NamedTuple):
     @property
     def stage_floats(self) -> int:
         return _stage_floats(self.ks, self.precision)
+
+    @property
+    def folded(self) -> bool:
+        return self.prologue_blocks == 0
 
     def split_centers(self, y: int, m: int) -> range:
         """The real centers (index < m) of split ``y``."""
@@ -242,22 +294,39 @@ def launch_plan(n: int, m: int, p: int, sms: int, online: bool, *,
     counterpart of the TPU wrapper's ``block_i`` / ``block_j`` for tuning
     sweeps: each split takes ``ceil(n_stages / n_split)`` stages and the
     count is trimmed so that none is empty; the cap is not applied.
-    ``precision`` sets the k-step and the b_aug stage's size."""
+    ``precision`` sets the k-step and the b_aug stage's size.
+
+    Folded (at most ``_FOLD_MAX_CENTERS`` centers, p within
+    ``_FOLD_MAX_P``): the same aim of blocks per SM, so at most
+    ``_FOLD_MAX_SPLIT`` splits (8 stages), the blocks of one cluster; no
+    prologue and no workspace but the flags (:class:`LaunchPlan`).
+    Unfolded up to ``_SHORT_MAX_CENTERS``: at most ``_SHORT_MAX_SPLIT``
+    splits (fewer, longer ones: at 2,048-10,000 centers they read faster
+    than the full aim on an H100, PERF.md) and a prologue block a stage;
+    above, the full aim and a prologue block for 256 centers."""
     _check_precision(precision)
     ks = -(-(p + _AUG_COLS[precision]) // _K_STEP[precision])
     n_stages = -(-m // _STAGE_CENTERS)
     q_blocks = -(-n // _ROWS)
+    if n_split is not None:
+        _check_split(n_split, m)
+    fold = m <= _FOLD_MAX_CENTERS and p <= _FOLD_MAX_P[precision]
     if n_split is None:
         want = -(-_BLOCKS_PER_SM * sms // q_blocks)
         n_split = max(1, min(want, n_stages),
                       -(-n_stages // _MAX_SPLIT_STAGES))
-    else:
-        _check_split(n_split, m)
+        if not fold and m <= _SHORT_MAX_CENTERS:
+            n_split = min(n_split, _SHORT_MAX_SPLIT)
     sps = -(-n_stages // n_split)
     n_split = -(-n_stages // sps)
-    prologue_blocks = -(-n_stages * _STAGE_CENTERS // _PROLOGUE_THREADS)
-    sizes = (n_stages * _stage_floats(ks, precision), prologue_blocks,
-             n_split * n, n_split * n if online else 0, q_blocks, 1)
+    if fold:
+        prologue_blocks = 0
+        sizes = (0, 0, 0, 0, 0, q_blocks * n_split)
+    else:
+        prologue_blocks = (n_stages if m <= _SHORT_MAX_CENTERS else
+                           -(-n_stages * _STAGE_CENTERS // _PROLOGUE_THREADS))
+        sizes = (n_stages * _stage_floats(ks, precision), prologue_blocks,
+                 n_split * n, n_split * n if online else 0, q_blocks, 1)
     offsets, at = [], 0
     for s in sizes:
         offsets.append(at)
@@ -278,46 +347,108 @@ def _library():
 
 
 @functools.lru_cache(maxsize=None)
+def _launch_count():
+    from abcsmc_tpu_torch.ops._build import load_library
+
+    fn = load_library("mixture_logsumexp").mixture_logsumexp_launch_count
+    fn.restype = ctypes.c_ulonglong
+    fn.argtypes = []
+    return fn
+
+
+def kernel_launches() -> int:
+    """Kernels the C entry has launched on the card in this process, the
+    prologue counted (csrc ``mixture_logsumexp_launch_count``: each launch
+    the CUDA runtime accepted). Its difference around one call is the
+    kernels that call launched; :func:`launches_per_call` is what the plan
+    says it should be."""
+    return int(_launch_count()())
+
+
+@functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+class _Call(NamedTuple):
+    """What one (shape, device, mode, scheme, split) call needs besides
+    its tensors, made once (:func:`_call_of`): the plan; the C entry's
+    int arguments in order (n .. scheme); the floats of the one
+    allocation (the output's n, rounded up to 4 where the plan's
+    workspace follows: not for a folded static or online call); the byte
+    offsets in it of the six workspace pointers in the C entry's order
+    (bfrag, lwmax, part_max, part_sum, arrivals, flag); and the
+    partial-kernel passes to count."""
+    plan: LaunchPlan
+    ints: tuple
+    floats: int
+    ptr_offsets: tuple
+    passes: int
+
+
+@functools.lru_cache(maxsize=256)
+def _call_of(n: int, m: int, p: int, index: int, mode: str,
+             precision: str, n_split: int | None) -> _Call:
+    online = mode != "static"
+    plan = launch_plan(n, m, p, _sm_count(index), online,
+                       n_split=n_split, precision=precision)
+    ints = (n, m, p, plan.ks, plan.stage_floats // 4, plan.n_stages,
+            plan.stages_per_split, plan.n_split, plan.prologue_blocks,
+            _CSRC_MODE[mode], _CSRC_SCHEME[precision])
+    ws = plan.ws_floats if mode == "auto" or not plan.folded else 0
+    out_floats = -(-n // 4) * 4 if ws else n
+    bfrag, lwmax, psum, pmax, arrivals, flag = (
+        4 * (out_floats + o) for o in plan.offsets)
+    return _Call(plan, ints, out_floats + ws,
+                 (bfrag, lwmax, pmax if online else psum, psum, arrivals,
+                  flag), 2 if mode == "auto" else 1)
+
+
 def _launch(a, b, log_w, mode: str, *, precision: str,
             n_split: int | None = None):
-    """One call of the kernel on the current stream: the prologue, then the
-    static and/or online partial kernel (csrc ``mode`` 0 static, 1 online,
-    2 auto) of the scheme ``precision`` names. The workspace is one
-    torch.empty; nothing syncs the host."""
+    """One call of the kernel on the current stream (csrc ``mode`` 0
+    static, 1 online, 2 auto; the scheme ``precision`` names): folded, one
+    partial kernel a pass; else the prologue, then the static and/or
+    online partial kernel. The output and the workspace are one
+    torch.empty (the output its first n floats); nothing syncs the host."""
     n, p = a.shape
     m = b.shape[0]
-    dev = a.device
-    online = mode != "static"
-    plan = launch_plan(n, m, p, _sm_count(dev.index), online,
-                       n_split=n_split, precision=precision)
-    ws = torch.empty((plan.ws_floats,), dtype=torch.float32, device=dev)
-    out = torch.empty((n,), dtype=torch.float32, device=dev)
-    base = ws.data_ptr()
-    bfrag, lwmax, psum, pmax, arrivals, flag = (
-        base + 4 * o for o in plan.offsets)
-    args = (a.data_ptr(), b.data_ptr(), log_w.data_ptr(), bfrag, lwmax,
-            pmax if online else psum, psum, arrivals, flag, out.data_ptr(),
-            n, m, p, plan.ks, plan.stage_floats // 4, plan.n_stages,
-            plan.stages_per_split,
-            plan.n_split, plan.prologue_blocks, _CSRC_MODE[mode],
-            _CSRC_SCHEME[precision],
-            torch.cuda.current_stream(dev).cuda_stream)
-    with torch.cuda.device(dev):   # the launches go to the current device
+    index = a.device.index
+    call = _call_of(n, m, p, index, mode, precision, n_split)
+    buf = torch.empty((call.floats,), dtype=torch.float32, device=a.device)
+    base = buf.data_ptr()
+    # the current stream's raw handle: 3-6 us a call less on the host than
+    # torch.cuda.current_stream(...).cuda_stream (PERF.md, host parts)
+    args = (a.data_ptr(), b.data_ptr(), log_w.data_ptr(),
+            *(base + o for o in call.ptr_offsets), base, *call.ints,
+            torch._C._cuda_getCurrentRawStream(index))
+    if torch.cuda.current_device() == index:
         err = _library()(*args)
+    else:
+        with torch.cuda.device(index):   # the launches go to a's device
+            err = _library()(*args)
     if err != 0:
         raise RuntimeError(
             f"mixture_logsumexp kernel launch failed: cudaError {err} "
             f"(n={n}, m={m}, p={p}, precision={precision}, "
-            f"plan={plan[:6]})"
+            f"plan={call.plan[:6]})"
         )
     # partial-kernel launches; auto's online pass counts though it may
     # return at once
-    count_launches(2 if mode == "auto" else 1, precision)
-    return out
+    count_launches(call.passes, precision)
+    return buf if call.floats == n else buf[:n]
+
+
+def launches_per_call(n: int, m: int, p: int, mode: str, *,
+                      precision: str = "highest", sms: int = 132,
+                      n_split: int | None = None) -> int:
+    """Kernel launches the plan says one call makes on the card, the
+    prologue counted: one partial kernel a pass (auto: two), and the
+    prologue unless the plan is folded (:func:`kernel_launches` counts
+    what a call did launch)."""
+    plan = launch_plan(n, m, p, sms, mode != "static", n_split=n_split,
+                       precision=precision)
+    return (2 if mode == "auto" else 1) + (0 if plan.folded else 1)
 
 
 def count_launches(k: int, precision: str):
@@ -328,15 +459,20 @@ def count_launches(k: int, precision: str):
 
 
 def _check_cuda_inputs(a, b, log_w):
-    for name, t in (("a", a), ("b", b), ("log_w", log_w)):
-        if t.device != a.device:
-            raise ValueError(
-                f"{name} is on {t.device}, a on {a.device}: one device only"
-            )
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32 on CUDA, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    dev, f32 = a.device, torch.float32
+    if not (b.device == dev and log_w.device == dev and a.dtype == f32
+            and b.dtype == f32 and log_w.dtype == f32 and a.is_contiguous()
+            and b.is_contiguous() and log_w.is_contiguous()):
+        for name, t in (("a", a), ("b", b), ("log_w", log_w)):
+            if t.device != dev:
+                raise ValueError(
+                    f"{name} is on {t.device}, a on {dev}: one device only"
+                )
+            if t.dtype != f32:
+                raise TypeError(
+                    f"{name} must be float32 on CUDA, got {t.dtype}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
     if a.dim() != 2 or b.dim() != 2 or log_w.dim() != 1:
         raise ValueError(
             f"shapes a{tuple(a.shape)} b{tuple(b.shape)} "

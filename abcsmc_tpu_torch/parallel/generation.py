@@ -1590,7 +1590,8 @@ class Generation:
         the capture meets no first-use work. The kernel's workspace is
         allocated inside the capture (the graph's own pool) and its
         arrival counters and rerun flag are reset by its prologue kernel,
-        which is part of the graph."""
+        which is part of the graph (a folded call, at up to 512 survivors,
+        has no counters: its rerun flags are written whole each replay)."""
         t0 = time.perf_counter()
         params = _tmap(torch.empty_like, like.next_params)
         seeds = _tmap(torch.empty_like, like.next_seeds)

@@ -23,13 +23,21 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
              in float64 ("high" and "highest"); the underflow case; true
              -inf weights (every scheme); one auto call of each scheme
              under torch.cuda.set_sync_debug_mode("error"); then every
-             scheme at those four large shapes and 200,000 x 50,000 x 13 in
-             every mode against its own plain version, auto timed beside
-             its plain version, its bound and the issue-slot floor
+             scheme at those four large shapes, 200,000 x 50,000 x 13 and
+             the shipped survivor keeps (every example's keep_t x
+             keep_{t-1} x p, folded up to 512 centers: one launch a pass;
+             2,048^2 x 16, 10,000 x 5,000 x 6 and 10,000^2 x 6 in short
+             splits) in every mode against its own plain version, auto
+             timed three ways (``ms`` host-paced, ``device_ms`` from a
+             replayed CUDA graph of the calls, ``host_us`` to enqueue one)
+             beside its plain version, its bound and the issue-slot floor
              (``issue_model_ms``, a model term: not part of the bound,
-             not measured, and left out of the kernels line), its error
-             against float64 on 4,096 rows ("default" at least 10x
-             "high"'s at 50,000^2);
+             not measured, and left out of the kernels line), its
+             kernels one call launched in each mode, the prologue
+             counted, as the C entry counts them (checked equal to the
+             plan's count; tests/test_torch_gpu.py also holds them to a
+             torch.profiler trace), its error against float64 on 4,096 rows ("default"
+             at least 10x "high"'s at 50,000^2);
              max abs diff <= 2e-4 nats;
 3. dengue  - examples/dengue_surrogate.json through
              AbcSmc(cfg, device="cuda").run_device(), cut to 3 sets: complete
@@ -264,6 +272,31 @@ def cuda_ms(fn, reps):
     return timer(fn, reps)
 
 
+def graph_ms(fn, reps):
+    """Device milliseconds per call (``bench_kernel.graph_ms``: ``reps``
+    calls captured into one CUDA graph, events around its replays)."""
+    from abcsmc_tpu_torch.bench_kernel import graph_ms as timer
+
+    return timer(fn, reps)
+
+
+def host_us(fn, reps):
+    """Host microseconds to enqueue one call (``bench_kernel.host_us``)."""
+    from abcsmc_tpu_torch.bench_kernel import host_us as timer
+
+    return timer(fn, reps)
+
+
+def keep_shapes():
+    """The survivor keeps the main paths give the kernel most: every
+    shipped example's keep_t x keep_{t-1} x p (``example_kernel_shapes``),
+    dengue_surrogate's 2,048^2 x 16, and ``tools.validate``'s and
+    ``bench_extra``'s 10,000 x 5,000 x 6 and 10,000^2 x 6."""
+    return sorted(set(example_kernel_shapes())
+                  | {(2048, 2048, 16), (10_000, 5_000, 6),
+                     (10_000, 10_000, 6)})
+
+
 def kernel_inputs(n, m, p, seed):
     """Scaled (a, b, log_w) as the weight stage makes them, from numpy."""
     import numpy as np
@@ -361,6 +394,8 @@ def phase_kernel():
         for mode in ("auto", "static", "online"):
             sfx = "" if mode == "auto" else f"_{mode}"
             shape["ms" + sfx] = cuda_ms(
+                lambda: mixture_logsumexp(a, b, lw, mode=mode, **hi), reps)
+            shape["device_ms" + sfx] = graph_ms(
                 lambda: mixture_logsumexp(a, b, lw, mode=mode, **hi), reps)
             shape["plain_ms" + sfx] = cuda_ms(
                 lambda: mixture_logsumexp_reference(a, b, lw, mode=mode),
@@ -470,21 +505,31 @@ def phase_kernel():
 
 
 def phase_kernel_schemes(errs):
-    """Every dot scheme at SCHEME_SHAPES in each mode against its own plain
-    version (float32; "default" rounds its operands to bfloat16 as the
-    kernel does), auto timed beside its plain version and its bound, and
-    held to float64 on 4,096 sampled query rows: "default" at least 10x
-    farther from float64 than "high" at 50,000^2 x 6 (it rounds), the
-    other two within 2e-4 nats. Returns {precision: {shape: numbers}}."""
+    """Every dot scheme at SCHEME_SHAPES and at the shipped keeps
+    (``keep_shapes``; folded up to 512 centers) in each mode against its
+    own plain version (float32; "default" rounds its operands to bfloat16
+    as the kernel does), auto timed three ways (``ms`` host-paced,
+    ``device_ms`` from a replayed graph, ``host_us`` to enqueue) beside its
+    plain version and its bound, the kernels one call launched in each
+    mode, the prologue counted, as the C entry counts them
+    (``kernel_launches`` around the call; ``launches_per_call``, checked
+    equal to the plan's count), and held to float64 on
+    4,096 sampled query rows: "default" at least 10x farther from float64
+    than "high" at 50,000^2 x 6 (it rounds), the other two within 2e-4
+    nats. Returns {precision: {shape: numbers}}."""
     import torch
 
     from abcsmc_tpu_torch.bench_kernel import sampled_error_f64
     from abcsmc_tpu_torch.ops.kernels import (
-        mixture_logsumexp, mixture_logsumexp_reference,
+        kernel_launches, launches_per_call, mixture_logsumexp,
+        mixture_logsumexp_reference,
     )
 
     out = {prec: {} for prec in PRECISIONS}
-    for n, m, p in SCHEME_SHAPES:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = list(SCHEME_SHAPES) + [s for s in keep_shapes()
+                                    if s not in SCHEME_SHAPES]
+    for n, m, p in shapes:
         a, b, lw = kernel_inputs(n, m, p, seed=n + p)
         key = f"{n}x{m}x{p}"
         for prec in PRECISIONS:
@@ -508,6 +553,20 @@ def phase_kernel_schemes(errs):
             reps = 20 if n < 10_000 else 5
             row["ms"] = cuda_ms(
                 lambda: mixture_logsumexp(a, b, lw, precision=prec), reps)
+            row["device_ms"] = graph_ms(
+                lambda: mixture_logsumexp(a, b, lw, precision=prec), reps)
+            row["host_us"] = host_us(
+                lambda: mixture_logsumexp(a, b, lw, precision=prec), reps)
+            row["launches_per_call"] = {}
+            for mode in ("static", "online", "auto"):
+                before = kernel_launches()
+                mixture_logsumexp(a, b, lw, mode=mode, precision=prec)
+                got = row["launches_per_call"][mode] = (
+                    kernel_launches() - before)
+                plan = launches_per_call(n, m, p, mode, precision=prec,
+                                         sms=sms)
+                check(got == plan, f"{mode}/{prec} at {key}: {got} kernels "
+                      f"launched a call, the plan says {plan}")
             row["plain_ms"] = cuda_ms(
                 lambda: mixture_logsumexp_reference(a, b, lw,
                                                     precision=prec), reps)
@@ -2806,6 +2865,7 @@ def main() -> int:
         "launches": main_path["high"],
         "max_abs_err": max(high_errs),
         "ms": times[big]["ms"],
+        "device_ms": times[big]["device_ms"],
         "plain_ms": times[big]["plain_ms"],
         "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"],
@@ -2816,13 +2876,15 @@ def main() -> int:
         "ms_online": times[big]["ms_online"],
         "bound_terms_ms": bound["terms_ms"],
         "by_shape": {
-            key: {"ms": t["ms"], "plain_ms": t["plain_ms"],
+            key: {"ms": t["ms"], "device_ms": t["device_ms"],
+                  "plain_ms": t["plain_ms"],
                   **{k: v for k, v in kernel_bound_ms(
                       *map(int, key.split("x"))).items()
                      if k in ("bound_ms", "bound_by")}}
             for key, t in times.items()},
         "schemes_by_shape": drop_issue_floor(schemes["high"]),
         "p2": {"shape": [n2, m2, p2], "ms": times[small_p]["ms"],
+               "device_ms": times[small_p]["device_ms"],
                "plain_ms": times[small_p]["plain_ms"],
                "ms_static": times[small_p]["ms_static"],
                "ms_online": times[small_p]["ms_online"],
@@ -2841,6 +2903,7 @@ def main() -> int:
             "launches": main_path[prec],
             "max_abs_err": max(v for k, v in errs.items() if prec in k),
             "ms": row["ms"],
+            "device_ms": row["device_ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],

@@ -191,6 +191,8 @@ def test_kernel_hostile_coordinates_match_float64(cuda, precision):
 
 @pytest.mark.parametrize("precision", kernels.PRECISIONS)
 def test_kernel_auto_makes_no_host_sync(cuda, precision):
+    """No mode syncs the host: the dengue keep (2,048^2 x 16), folded or
+    not, and 2,048 x 16,448 x 16 (the large-keep plan)."""
     a, b, lw = _scaled(2048, 2048, 16, 4, cuda)
     # build and load outside
     kernels.mixture_logsumexp(a, b, lw, precision=precision)
@@ -204,6 +206,19 @@ def test_kernel_auto_makes_no_host_sync(cuda, precision):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert kernels.mixture_logsumexp.launches == before + 4
+    a2, b2, lw2 = _scaled(2048, kernels._SHORT_MAX_CENTERS + 64, 16, 4,
+                          cuda)
+    kernels.mixture_logsumexp(a2, b2, lw2, precision=precision)
+    torch.cuda.synchronize()
+    before = kernels.mixture_logsumexp.launches - 4
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for mode in ("auto", "static", "online"):
+            kernels.mixture_logsumexp(a2, b2, lw2, mode=mode,
+                                      precision=precision)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.mixture_logsumexp.launches == before + 8
 
 
 # p on both sides of each edge of the FFMA program's instances ("highest":
@@ -311,13 +326,206 @@ def test_highest_refuses_a_stage_of_the_old_width(cuda, monkeypatch):
     keep) is refused with cudaErrorInvalidValue, before any launch."""
     a, b, lw = _scaled(300, 500, 6, 1, cuda)
     monkeypatch.setitem(kernels._AUG_COLS, "highest", 2)
-    kernels.launch_plan.cache_clear()
+    _clear_plans()
     try:
         with pytest.raises(RuntimeError, match=r"cudaError 1 "):
             kernels.mixture_logsumexp(a, b, lw, mode="auto",
                                       precision="highest")
     finally:
-        kernels.launch_plan.cache_clear()
+        _clear_plans()
+
+
+def _clear_plans():
+    """Forget every cached plan and call (after a plan constant is
+    patched)."""
+    kernels.launch_plan.cache_clear()
+    kernels._call_of.cache_clear()
+
+
+# the survivor keeps the main paths give the kernel (PERF.md): sir,
+# lv, ma2, gaussian 102-410 x 2; ricker 410 x 3; gk, mg1 410 x 4; dice
+# 256 x 2 and 256 x 128 x 2; dengue 2,048^2 x 16; tools.validate and
+# bench_extra 10,000 x 5,000 x 6 and 10,000^2 x 6
+SHIPPED_KEEPS = ((102, 102, 2), (205, 205, 2), (410, 410, 3), (410, 410, 4),
+                 (256, 256, 2), (256, 128, 2), (2048, 2048, 16),
+                 (10_000, 5_000, 6), (10_000, 10_000, 6))
+
+
+@pytest.mark.parametrize("precision", kernels.PRECISIONS)
+def test_kernel_at_the_shipped_keeps(cuda, precision):
+    """At every shipped keep (folded up to ``_FOLD_MAX_CENTERS``, short
+    splits above): each mode within 2e-4 nats
+    of the scheme's plain version, with weights at the -1e30 sentinel and
+    at -inf beside live ones; a far query row whose static sum underflows
+    (-inf in static, as JAX returns it) makes auto rerun online: auto
+    equals online, and the far row's value is the plain version's to
+    1e-6 relative (about -1e8, where a float32 ulp is 8)."""
+    for n, m, p in SHIPPED_KEEPS:
+        a, b, lw = _scaled(n, m, p, n + m + p, cuda)
+        lw = lw.clone()
+        lw[::17] = -math.inf
+        lw[5::23] = -1e30
+        for mode in ("static", "online", "auto"):
+            got = kernels.mixture_logsumexp(a, b, lw, mode=mode,
+                                            precision=precision)
+            ref = kernels.mixture_logsumexp_reference(
+                a, b, lw, mode=mode, precision=precision)
+            assert bool(torch.isfinite(got).all()), (n, m, p, mode)
+            assert float((got - ref).abs().max()) <= TOL, (n, m, p, mode)
+        a = a.clone()
+        a[-1] = 1e4
+        out = {mode: kernels.mixture_logsumexp(a, b, lw, mode=mode,
+                                               precision=precision)
+               for mode in ("static", "online", "auto")}
+        ref = kernels.mixture_logsumexp_reference(a, b, lw, mode="online",
+                                                  precision=precision)
+        assert bool(torch.isneginf(out["static"][-1]))
+        assert bool(torch.isfinite(out["static"][:-1]).all())
+        assert torch.equal(out["auto"], out["online"]), (n, m, p)
+        torch.testing.assert_close(out["auto"][-1], ref[-1], rtol=1e-6,
+                                   atol=0)
+
+
+def _kernel_names(prof):
+    """{kernel name: count} of the weight kernel's launches a profile
+    traced on the card."""
+    counts = {}
+    for ev in prof.key_averages():
+        key = ev.key
+        if ("partial_kernel" in key or "prologue_kernel" in key) and (
+                ev.device_type == torch.autograd.DeviceType.CUDA
+                or getattr(ev, "device_time_total", 0) > 0):
+            counts[key] = counts.get(key, 0) + ev.count
+    return counts
+
+
+@pytest.mark.parametrize("precision", kernels.PRECISIONS)
+def test_profiler_counts_one_launch_a_pass_when_folded(cuda, precision):
+    """torch.profiler on the card: at the shipped keeps up to
+    ``_FOLD_MAX_CENTERS`` (205^2 x 2, 410^2 x 3) a static or online call is
+    one kernel and an auto call two (no prologue_kernel); above it
+    (2,048^2 x 16 and 4,096^2 x 6 with short splits; 256 x 16,448 x 6 with
+    the large-keep plan) the prologue, then one partial kernel a pass.
+    ``launches_per_call`` (the plan) and ``kernel_launches`` (the C
+    entry's count) say the same."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]):   # warm the tracer up
+        kernels.mixture_logsumexp(*_scaled(205, 205, 2, 8, cuda))
+        torch.cuda.synchronize()
+    cases = [((205, 205, 2), True), ((410, 410, 3), True),
+             ((2048, 2048, 16), False), ((4096, 4096, 6), False),
+             ((256, kernels._SHORT_MAX_CENTERS + 64, 6), False)]
+    for (n, m, p), folded in cases:
+        a, b, lw = _scaled(n, m, p, 8, cuda)
+        for mode in ("static", "online", "auto"):
+            passes = 2 if mode == "auto" else 1
+            for _ in range(3):   # the tracer may drop a record, never add
+                kernels.mixture_logsumexp(a, b, lw, mode=mode,
+                                          precision=precision)
+                torch.cuda.synchronize()
+                before = kernels.kernel_launches()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(3):
+                        kernels.mixture_logsumexp(a, b, lw, mode=mode,
+                                                  precision=precision)
+                    torch.cuda.synchronize()
+                counted = kernels.kernel_launches() - before
+                names = _kernel_names(prof)
+                if sum(names.values()) == 3 * (passes + (not folded)):
+                    break
+            prologues = sum(v for k, v in names.items() if "prologue" in k)
+            partials = sum(v for k, v in names.items() if "partial" in k)
+            assert partials == 3 * passes, (n, m, p, mode, names)
+            assert prologues == (0 if folded else 3), (n, m, p, mode, names)
+            assert kernels.launches_per_call(
+                n, m, p, mode, precision=precision) == passes + (not folded)
+            assert counted == 3 * (passes + (not folded)), (n, m, p, mode)
+
+
+@pytest.mark.parametrize("precision", kernels.PRECISIONS)
+def test_folded_equals_unfolded_at_the_same_split(cuda, precision):
+    """With the folded plan's own split forced on the unfolded form (the
+    prologue, global b_aug stages, arrival counters), every mode gives the
+    same bits: the folded stages, max_lw and merge are the prologue's and
+    merge_splits' arithmetic."""
+    for n, m, p in ((205, 205, 2), (410, 410, 4), (256, 128, 2),
+                    (2085, 500, 13), (10_000, 512, 6), (1, 65, 7)):
+        a, b, lw = _scaled(n, m, p, 21, cuda)
+        plan = kernels.launch_plan(n, m, p, 132, True, precision=precision)
+        assert plan.folded
+        folded = {mode: kernels.mixture_logsumexp(a, b, lw, mode=mode,
+                                                  precision=precision)
+                  for mode in ("static", "online", "auto")}
+        keep = kernels._FOLD_MAX_CENTERS
+        kernels._FOLD_MAX_CENTERS = 0
+        _clear_plans()
+        try:
+            for mode, got in folded.items():
+                un = kernels.mixture_logsumexp(a, b, lw, mode=mode,
+                                               precision=precision,
+                                               n_split=plan.n_split)
+                assert torch.equal(got, un), (n, m, p, mode)
+        finally:
+            kernels._FOLD_MAX_CENTERS = keep
+            _clear_plans()
+
+
+GRAPH_CALLS = (((410, 410, 3), "auto"), ((2048, 2048, 16), "static"),
+               ((205, 205, 2), "online"), ((256, 128, 2), "auto"))
+
+
+@pytest.mark.parametrize("precision", kernels.PRECISIONS)
+def test_graph_of_calls_replayed_equals_eager(cuda, precision):
+    """Four folded calls (every mode) captured into one CUDA graph and
+    replayed 50 times on new inputs copied into the captured ones: each
+    replay equals the eager calls on those inputs, bit for bit (nothing
+    left behind by one replay, no counter to reset)."""
+    static = [list(_scaled(*shape, 1, cuda)) for shape, _ in GRAPH_CALLS]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):     # build, load and plan outside
+        for x, (_, mode) in zip(static, GRAPH_CALLS):
+            kernels.mixture_logsumexp(*x, mode=mode, precision=precision)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [kernels.mixture_logsumexp(*x, mode=mode, precision=precision)
+                for x, (_, mode) in zip(static, GRAPH_CALLS)]
+    for rep in range(50):
+        fresh = [_scaled(*shape, 100 + rep, cuda) for shape, _ in GRAPH_CALLS]
+        for dst, src in zip(static, fresh):
+            for d, t in zip(dst, src):
+                d.copy_(t)
+        graph.replay()
+        eager = [kernels.mixture_logsumexp(*x, mode=mode, precision=precision)
+                 for x, (_, mode) in zip(fresh, GRAPH_CALLS)]
+        torch.cuda.synchronize()
+        for o, e in zip(outs, eager):
+            assert torch.equal(o, e), rep
+
+
+@pytest.mark.parametrize("precision", kernels.PRECISIONS)
+def test_two_streams_at_once_equal_one_after_the_other(cuda, precision):
+    """Auto calls in flight on three streams at once (folded, short
+    splits, the large-keep plan) equal the same calls run one after the
+    other."""
+    shapes = ((410, 410, 3), (4096, 4096, 6),
+              (256, kernels._SHORT_MAX_CENTERS + 64, 6))
+    xs = [_scaled(*shape, 6, cuda) for shape in shapes]
+    want = [kernels.mixture_logsumexp(*x, precision=precision) for x in xs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in xs]
+    for _ in range(20):
+        got = []
+        for st, x in zip(streams, xs):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                got.append(kernels.mixture_logsumexp(*x, precision=precision))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 def test_generation_step_cuda_matches_cpu(cuda):

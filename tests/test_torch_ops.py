@@ -319,7 +319,9 @@ def test_launch_plan_covers_every_center_once(n, m, p, sms):
     split, no split is empty, K = p+2 is padded to a multiple of 8 by less
     than 8, and the workspace segments (b_aug fragments, prologue maxima,
     partial sums and maxima, arrival counters, flag) are 16-byte aligned
-    and disjoint."""
+    and disjoint; a folded plan (at most ``_FOLD_MAX_CENTERS`` centers)
+    has no prologue, at most one cluster of splits, and only the flags
+    of auto's rerun, one a (query block, split)."""
     for online in (False, True):
         plan = kernels.launch_plan(n, m, p, sms, online)
         assert plan.k_pad % 8 == 0 and 0 <= plan.k_pad - (p + 2) < 8
@@ -332,11 +334,18 @@ def test_launch_plan_covers_every_center_once(n, m, p, sms):
             seen[r.start:r.stop] += 1
         assert (seen == 1).all()
         assert plan.n_split * plan.stages_per_split >= plan.n_stages
-        assert plan.prologue_blocks * kernels._PROLOGUE_THREADS >= (
-            plan.n_stages * kernels._STAGE_CENTERS)
-        sizes = (plan.n_stages * kernels._STAGE_CENTERS * plan.ks * 16,
-                 plan.prologue_blocks, plan.n_split * n,
-                 plan.n_split * n if online else 0, plan.q_blocks, 1)
+        assert plan.folded == (m <= kernels._FOLD_MAX_CENTERS
+                               and p <= kernels._FOLD_MAX_P["high"])
+        if plan.folded:
+            assert plan.prologue_blocks == 0
+            assert plan.n_split <= kernels._FOLD_MAX_SPLIT
+            sizes = (0, 0, 0, 0, 0, plan.q_blocks * plan.n_split)
+        else:
+            assert plan.prologue_blocks * kernels._PROLOGUE_THREADS >= (
+                plan.n_stages * kernels._STAGE_CENTERS)
+            sizes = (plan.n_stages * kernels._STAGE_CENTERS * plan.ks * 16,
+                     plan.prologue_blocks, plan.n_split * n,
+                     plan.n_split * n if online else 0, plan.q_blocks, 1)
         ends = [o + s for o, s in zip(plan.offsets, sizes)]
         assert all(o % 4 == 0 for o in plan.offsets)
         assert all(e <= o for e, o in zip(ends, plan.offsets[1:]))
@@ -345,9 +354,15 @@ def test_launch_plan_covers_every_center_once(n, m, p, sms):
 
 def test_launch_plan_fills_the_card():
     """The center axis is split until the partial kernel has about
-    _BLOCKS_PER_SM blocks per SM, or every split is one 64-center stage."""
-    small = kernels.launch_plan(2048, 2048, 16, 132, False)
-    assert small.stages_per_split == 1 and small.n_split == 32
+    _BLOCKS_PER_SM blocks per SM, or every split is one 64-center stage;
+    up to _SHORT_MAX_CENTERS centers in at most _SHORT_MAX_SPLIT splits:
+    the dengue keep, 2,048^2 x 16, 16 x 16 blocks of 2 stages."""
+    small = kernels.launch_plan(256, 20_480, 16, 132, False)
+    assert small.stages_per_split == 1 and small.n_split == 320
+    for prec in kernels.PRECISIONS:
+        keep = kernels.launch_plan(2048, 2048, 16, 132, False,
+                                   precision=prec)
+        assert keep.n_split == 16 and keep.stages_per_split == 2
     big = kernels.launch_plan(50_000, 50_000, 6, 132, False)
     assert big.q_blocks * big.n_split >= kernels._BLOCKS_PER_SM * 132
     assert big.q_blocks * (big.n_split - 1) < kernels._BLOCKS_PER_SM * 132
