@@ -46,7 +46,7 @@ import time
 import numpy as np
 import torch
 
-from abcsmc_tpu_torch import reports
+from abcsmc_tpu_torch import reports, spans
 from abcsmc_tpu_torch.config import FilterType, NoiseType, SmcConfig, parse_config
 from abcsmc_tpu_torch.errors import AbcError, SimulatorError, StorageError
 from abcsmc_tpu_torch.models.metrics import Metric, observed_vector
@@ -72,6 +72,15 @@ _FUSED_HISTORY_BYTES = 256 * 2**20
 _AUTO_MIN_REPLAYS = 4
 #: rows from which the mirror announces the size of its store write
 _MIRROR_NOTICE_ROWS = 1 << 24
+
+
+def _run_phases(first_set: int, route: str | None) -> dict:
+    """A device-path run's "run_device_phases" entry before its spans add
+    their seconds, bytes and rows to it."""
+    return {"op": "run_device_phases", "sets": 0, "first_set": first_set,
+            "route": route, "dispatch_s": 0.0, "mirror_s": 0.0,
+            "fetch_s": 0.0, "fetch_bytes": 0, "store_s": 0.0,
+            "store_rows": 0, "report_s": 0.0}
 
 
 def _host(x) -> np.ndarray:
@@ -149,10 +158,21 @@ class AbcSmc:
             src.close()
 
         #: per-call stage timings: "process" / "rank" / "simulate" entries
-        #: from the host engine, one "device_generation" entry per set (the
-        #: step's CUDA-event milliseconds, its simulate stage apart) and
-        #: one "run_device_phases" entry per run from the device path, one
-        #: "simulate_device" entry per set from the projection route
+        #: from the host engine; from the device path one
+        #: "device_generation" entry per set (its "set"; CUDA-event
+        #: milliseconds of the step, "device_ms", and of its stages,
+        #: "simulate_ms", "pls_fit_ms", "vdv_ms", "topk_ms", "weights_ms",
+        #: "propose_ms", each None where the stage did not run or was not
+        #: timed: the CPU, a replayed set, a filter without PLS) and one
+        #: "run_device_phases" entry per run ("first_set", "sets"; the host
+        #: seconds of the spans "abcsmc.dispatch" in "dispatch_s" and
+        #: "abcsmc.mirror" in "mirror_s", inside it "abcsmc.fetch" in
+        #: "fetch_s" with the bytes copied from the device in "fetch_bytes",
+        #: "abcsmc.store.<method>" in "store_s" with the rows written in
+        #: "store_rows", "abcsmc.report.filtering" and, after the mirror,
+        #: "abcsmc.report.convergence" in "report_s"; a split-propose set is
+        #: fetched inside the dispatch); one "simulate_device" entry per set
+        #: from the projection route
         self.timings: list[dict] = []
         #: the particle mesh of the running device-path call (one shard on
         #: ``self.device`` without a mesh), None elsewhere: the gating below
@@ -888,57 +908,58 @@ class AbcSmc:
                    f"the step is not capturable ({blocker}), running the "
                    "eager chain\n"))
 
-        t_dispatch0 = time.perf_counter()
+        # filled by the run's spans as they run, appended to ``timings``
+        # after the mirror
+        phases = _run_phases(t_first, route)
         pending_serials = None
-        if not fused_ok:
-            fetched, info, pending_serials = self._run_sequential(
-                gen, generator, pending, t_first, sizes, keeps)
-        else:
-            if use_scan:
-                _, hist = gen.run_scan(generator, sizes[0], keeps[0], n_sets,
-                                       full_history=True)
-                entries = [("bucket", n_sets, hist)]
+        with spans.host(phases, "dispatch_s", "abcsmc.dispatch"):
+            if not fused_ok:
+                fetched, info, pending_serials = self._run_sequential(
+                    gen, generator, pending, t_first, sizes, keeps, phases)
             else:
-                _, entries = gen.run_chain(generator, sizes, keeps,
-                                           full_history=True,
-                                           bucketed_history=True)
-            fetched, info = None, gen.set_info
-        t_dispatch = time.perf_counter() - t_dispatch0
+                if use_scan:
+                    _, hist = gen.run_scan(generator, sizes[0], keeps[0],
+                                           n_sets, full_history=True)
+                    entries = [("bucket", n_sets, hist)]
+                else:
+                    _, entries = gen.run_chain(generator, sizes, keeps,
+                                               full_history=True,
+                                               bucketed_history=True)
+                fetched, info = None, gen.set_info
 
         # ---- fetch every set once, then mirror into the run store ----
-        t_mirror0 = time.perf_counter()
-        if fetched is None:
-            fetched = self._fetch_history(entries, t_first)
-            del entries
-        else:
-            fetched = [
-                tuple(x if isinstance(x, np.ndarray)
-                      else self._fetch_global(x) for x in tup)
-                for tup in fetched
-            ]
-        # the mirror is collective-free: a store error on the writer must
-        # not leave its peers waiting in the barrier below
-        with self._writer_guard("the store mirror"):
-            self._mirror_fetched_sets(fetched, t_first, pending_serials,
-                                      mirror_store)
-        # the mirror appended one "device_generation" entry per set, in order
-        for entry, inf in zip(self.timings[-len(fetched):], info):
-            ev, sim = inf["events"], inf["sim_events"]
-            entry["route"] = inf["route"]
-            entry["device_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
-            entry["simulate_ms"] = sim[0].elapsed_time(sim[1]) if sim else None
-            # the MULTIVARIATE rejection loop's count (read once per set),
-            # and whether its rounds ran past the block a replay holds
-            entry["mvn_rounds"] = inf["mvn_rounds"]
-            entry["mvn_finished_eagerly"] = inf["mvn_finished_eagerly"]
-            if inf["box_cox_lambdas"] is not None:
-                entry["box_cox_lambdas"] = _host(
-                    inf["box_cox_lambdas"]).tolist()
-        self.timings.append({
-            "op": "run_device_phases", "sets": len(fetched),
-            "first_set": t_first, "route": route,
-            "dispatch_s": t_dispatch,
-            "mirror_s": time.perf_counter() - t_mirror0,
+        with spans.host(phases, "mirror_s", "abcsmc.mirror"):
+            with spans.host(phases, "fetch_s", "abcsmc.fetch"):
+                if fetched is None:
+                    fetched = self._fetch_history(entries, t_first, phases)
+                    del entries
+                else:
+                    fetched = [tuple(self._fetch_counted(x, phases)
+                                     for x in tup) for tup in fetched]
+            # the mirror is collective-free: a store error on the writer
+            # must not leave its peers waiting in the barrier below
+            with self._writer_guard("the store mirror"):
+                self._mirror_fetched_sets(fetched, t_first, pending_serials,
+                                          mirror_store, phases)
+            # the mirror appended one "device_generation" entry per set, in
+            # order
+            for entry, inf in zip(self.timings[-len(fetched):], info):
+                ev, sim = inf["events"], inf["sim_events"]
+                entry["route"] = inf["route"]
+                entry["device_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
+                entry["simulate_ms"] = (sim[0].elapsed_time(sim[1]) if sim
+                                        else None)
+                entry.update(spans.stage_ms(inf["stages"]))
+                # the MULTIVARIATE rejection loop's count (read once per
+                # set), and whether its rounds ran past the block a replay
+                # holds
+                entry["mvn_rounds"] = inf["mvn_rounds"]
+                entry["mvn_finished_eagerly"] = inf["mvn_finished_eagerly"]
+                if inf["box_cox_lambdas"] is not None:
+                    entry["box_cox_lambdas"] = _host(
+                        inf["box_cox_lambdas"]).tolist()
+        phases.update({
+            "sets": len(fetched),
             # what the host submitted: init, steps, proposals and graph
             # replays (one per set on every route), and the graphs apart
             "programs": gen.dispatches,
@@ -948,19 +969,23 @@ class AbcSmc:
             "mvn_eager_finishes": gen.mvn_eager_finishes,
             "shards": gen.mesh.size,
         })
+        self.timings.append(phases)
         if self._proc0():
-            reports.report_convergence_data(self, t_first + len(fetched) - 1)
+            with spans.host(phases, "report_s", "abcsmc.report.convergence"):
+                reports.report_convergence_data(
+                    self, t_first + len(fetched) - 1)
         # every process may read the store once run_device returns
         self._mesh_sync()
         return self
 
     def _run_sequential(self, gen, generator, pending, t_first, sizes,
-                        keeps):
+                        keeps, phases):
         """One eager step per set from ``t_first`` on. Returns (per-set
         tuples (params, seeds, metrics, survivor_idx, weights,
         doubled_variance, ncomp_used): device tensors, or host arrays for
-        a split-propose set; per-set info as ``Generation.set_info``; the
-        serials of a resumed set's rows or None)."""
+        a split-propose set, fetched here under the run's ``phases``; per-set
+        info as ``Generation.set_info``; the serials of a resumed set's
+        rows or None)."""
         cfg = self.config
         on_cuda = self.device.type == "cuda"
         n_sets = len(sizes)
@@ -1027,7 +1052,7 @@ class AbcSmc:
             state = (res.survivor_params, res.weights, res.doubled_variance)
             converged = self._nrmse_converged(res.survivor_metrics, t)
             inf = {"route": "eager", "events": ev,
-                   "sim_events": res.sim_events,
+                   "sim_events": res.sim_events, "stages": res.stages,
                    "mvn_rounds": res.mvn_rounds,
                    "mvn_finished_eagerly": res.mvn_finished_eagerly,
                    "box_cox_lambdas": res.box_cox_lambdas}
@@ -1035,10 +1060,12 @@ class AbcSmc:
             if split_t:
                 # the set's seven buffers at once, then its O(N) device
                 # buffers die before the [N2, P] proposal is made
-                tuples.append(tuple(
-                    self._fetch_global(x) for x in (
-                        params, seeds, res.metrics, res.survivor_idx,
-                        res.weights, res.doubled_variance, res.ncomp_used)))
+                with spans.host(phases, "fetch_s", "abcsmc.fetch"):
+                    tuples.append(tuple(
+                        self._fetch_counted(x, phases) for x in (
+                            params, seeds, res.metrics, res.survivor_idx,
+                            res.weights, res.doubled_variance,
+                            res.ncomp_used)))
                 del params, seeds, res
                 if converged:
                     break
@@ -1057,9 +1084,19 @@ class AbcSmc:
                     break
         return tuples, info, pending_serials
 
-    def _fetch_history(self, entries, t_first: int):
+    def _fetch_counted(self, x, phases) -> np.ndarray:
+        """:meth:`_fetch_global` of a device leaf, its host bytes added to
+        ``phases["fetch_bytes"]``; a host array as it is."""
+        if isinstance(x, np.ndarray):
+            return x
+        host = self._fetch_global(x)
+        phases["fetch_bytes"] += host.nbytes
+        return host
+
+    def _fetch_history(self, entries, t_first: int, phases):
         """The fused routes' history (``("set", leaves)`` / ``("bucket", L,
-        stacked leaves)`` entries) as per-set host tuples. With an
+        stacked leaves)`` entries) as per-set host tuples, the bytes
+        fetched added to ``phases["fetch_bytes"]``. With an
         ``nrmse_tolerance`` the small survivor-metric leaves are fetched
         first and the history is cut at the first converged set, exactly
         where the sequential loop stops: the O(N) leaves of the sets after
@@ -1071,6 +1108,7 @@ class AbcSmc:
             smets = []
             for e in entries:
                 sm = _host(e[1][2] if e[0] == "set" else e[2][2])
+                phases["fetch_bytes"] += sm.nbytes
                 smets.extend([sm] if e[0] == "set" else list(sm))
             cut = len(smets)
             for i, sm in enumerate(smets):
@@ -1087,19 +1125,22 @@ class AbcSmc:
             s0 += blen
             tup = (h[6], h[7], h[8], h[0], h[3], h[4], h[5])
             if e[0] == "set":
-                fetched.append(tuple(self._fetch_global(x) for x in tup))
+                fetched.append(tuple(self._fetch_counted(x, phases)
+                                     for x in tup))
                 continue
             # stacked shard leaves are [L, local_n, ...]: rows on axis 1
             host = tuple(
                 self._fetch_global([y[:blen] for y in x], axis=1)
                 if isinstance(x, list) else self._fetch_global(x[:blen])
                 for x in tup)
+            phases["fetch_bytes"] += sum(leaf.nbytes for leaf in host)
             fetched.extend(tuple(leaf[g] for leaf in host)
                            for g in range(blen))
         return fetched
 
     def _mirror_fetched_sets(self, fetched, t0: int = 0,
-                             pending_serials=None, mirror_store: bool = True):
+                             pending_serials=None, mirror_store: bool = True,
+                             phases: dict | None = None):
         """Mirror the fetched per-set host tuples (sets t0, t0+1, ...) into
         the store and the in-memory posterior state, then print each set's
         filtering report. Set t0's rows already exist when
@@ -1109,15 +1150,20 @@ class AbcSmc:
         before any store write for that set. ``mirror_store=False`` writes
         nothing to the store and does the rest. On a multi-process mesh
         only the store writer writes and process 0 reports; every process
-        fills its in-memory state. No collective runs in here."""
+        fills its in-memory state. No collective runs in here. The run's
+        ``phases`` (:func:`_run_phases`; None: a new one) take the spans'
+        seconds and the rows written."""
         cfg = self.config
+        if phases is None:
+            phases = _run_phases(t0, None)
         mirror_store = mirror_store and self._store_writer()
         if mirror_store and not self.storage.exists():
-            self.storage.create(
-                self.par_set.short_names(),
-                [m.short_name for m in self.metrics],
-                self.transform.has_any,
-            )
+            with spans.host(phases, "store_s", "abcsmc.store.create"):
+                self.storage.create(
+                    self.par_set.short_names(),
+                    [m.short_name for m in self.metrics],
+                    self.transform.has_any,
+                )
         for i, host in enumerate(fetched):
             t = t0 + i
             n_t = cfg.smc_size_at(t)
@@ -1132,12 +1178,13 @@ class AbcSmc:
                     "pls_optimal_method='tolerance' and report the device "
                     "and library versions.",
                 )
-            pars_np = np.asarray(pars_h, np.float64)[:n_t]
-            seeds_np = np.asarray(seeds_h).astype(np.uint64)[:n_t]
-            mets_np = np.asarray(mets_h, np.float64)[:n_t]
-            surv = np.asarray(surv_h, np.int64)
-            ranks = np.full(len(pars_np), -1, np.int64)
-            ranks[surv] = np.arange(len(surv))
+            with spans.host(phases, "fetch_s", "abcsmc.fetch"):
+                pars_np = np.asarray(pars_h, np.float64)[:n_t]
+                seeds_np = np.asarray(seeds_h).astype(np.uint64)[:n_t]
+                mets_np = np.asarray(mets_h, np.float64)[:n_t]
+                surv = np.asarray(surv_h, np.int64)
+                ranks = np.full(len(pars_np), -1, np.int64)
+                ranks[surv] = np.arange(len(surv))
             if mirror_store and n_t >= _MIRROR_NOTICE_ROWS:
                 # say what the store write will cost instead of looking
                 # hung: the streamed insert is linear in the rows
@@ -1151,32 +1198,43 @@ class AbcSmc:
                 )
             if mirror_store and i == 0 and pending_serials is not None:
                 n_rows = len(pending_serials)
-                self.storage.write_results(
-                    pending_serials, mets_np,
-                    np.full(n_rows, int(time.time())), np.zeros(n_rows),
-                )
-                self.storage.write_posterior_ranks(pending_serials, ranks)
+                with spans.host(phases, "store_s",
+                                "abcsmc.store.write_results"):
+                    self.storage.write_results(
+                        pending_serials, mets_np,
+                        np.full(n_rows, int(time.time())), np.zeros(n_rows),
+                    )
+                with spans.host(phases, "store_s",
+                                "abcsmc.store.write_posterior_ranks"):
+                    self.storage.write_posterior_ranks(pending_serials, ranks)
+                phases["store_rows"] += n_rows
             elif mirror_store:
-                upars = (
-                    self.transform.to_model_space(
-                        torch.as_tensor(pars_np)).numpy()
-                    if self.transform.has_any else None
-                )
-                self.storage.insert_generation_complete(
-                    t, pars_np, seeds_np, mets_np, upars, ranks
-                )
-            self._particle_parameters.append(pars_np)
-            self._particle_metrics.append(mets_np)
-            self._predictive_prior.append(surv)
-            self._weights.append(np.asarray(w_h, np.float64))
-            self._doubled_variance.append(np.asarray(dv_h, np.float64))
+                with spans.host(phases, "store_s",
+                                "abcsmc.store.insert_generation_complete"):
+                    upars = (
+                        self.transform.to_model_space(
+                            torch.as_tensor(pars_np)).numpy()
+                        if self.transform.has_any else None
+                    )
+                    self.storage.insert_generation_complete(
+                        t, pars_np, seeds_np, mets_np, upars, ranks
+                    )
+                phases["store_rows"] += len(pars_np)
+            with spans.host(phases, "fetch_s", "abcsmc.fetch"):
+                self._particle_parameters.append(pars_np)
+                self._particle_metrics.append(mets_np)
+                self._predictive_prior.append(surv)
+                self._weights.append(np.asarray(w_h, np.float64))
+                self._doubled_variance.append(np.asarray(dv_h, np.float64))
             self.timings.append({
                 "op": "device_generation", "set": t,
                 "ncomp_used": ncomp_val,
             })
             if self._proc0():
-                reports.filtering_report(self, t, pars_np[surv],
-                                         mets_np[surv])
+                with spans.host(phases, "report_s",
+                                "abcsmc.report.filtering"):
+                    reports.filtering_report(self, t, pars_np[surv],
+                                             mets_np[surv])
 
     # ---------------------------------------------------------- projection
     def _run_device_projection(self, seed: int, verbose: bool):

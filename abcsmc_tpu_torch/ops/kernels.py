@@ -44,6 +44,7 @@ and 10,000) an unfolded call takes short splits: at most
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import re
@@ -51,6 +52,7 @@ from typing import NamedTuple
 
 import torch
 
+from abcsmc_tpu_torch.ops import _build
 from abcsmc_tpu_torch.ops._build import CSRC
 
 NEG_INF = -1e30
@@ -356,13 +358,29 @@ def _launch_count():
     return fn
 
 
-def kernel_launches() -> int:
-    """Kernels the C entry has launched on the card in this process, the
-    prologue counted (csrc ``mixture_logsumexp_launch_count``: each launch
-    the CUDA runtime accepted). Its difference around one call is the
-    kernels that call launched; :func:`launches_per_call` is what the plan
-    says it should be."""
+#: what :func:`kernel_launches` adds to the C entry's count: less the
+#: launches it counted while a CUDA graph captured them (recorded, not
+#: run), plus those the graph's replays ran (:func:`graph_capture_counts`,
+#: :func:`count_launches`)
+_graph_offset = 0
+
+
+def _c_launches() -> int:
+    """The C entry's count; 0 before its library is loaded (nothing has
+    launched yet)."""
+    if "mixture_logsumexp" not in _build._loaded:
+        return 0
     return int(_launch_count()())
+
+
+def kernel_launches() -> int:
+    """Kernels of the C entry that ran on the card in this process, the
+    prologue counted, on every route: each launch the CUDA runtime accepted
+    (csrc ``mixture_logsumexp_launch_count``), except those recorded into a
+    CUDA graph, which count once per replay of the graph instead. Its
+    difference around one call is the kernels that call launched;
+    :func:`launches_per_call` is what the plan says it should be."""
+    return int(_launch_count()()) + _graph_offset
 
 
 @functools.lru_cache(maxsize=None)
@@ -451,11 +469,37 @@ def launches_per_call(n: int, m: int, p: int, mode: str, *,
     return (2 if mode == "auto" else 1) + (0 if plan.folded else 1)
 
 
-def count_launches(k: int, precision: str):
+def count_launches(k: int, precision: str, kernels: int = 0):
     """Add ``k`` partial-kernel launches of scheme ``precision`` to the
-    counts (a replayed graph adds what it holds)."""
+    counts. A replayed graph adds what it holds, and ``kernels``, the C
+    entry's launches in it (prologue counted), to :func:`kernel_launches`:
+    a replay does not pass through the C entry."""
+    global _graph_offset
     mixture_logsumexp.launches += k
     mixture_logsumexp.launches_by_precision[precision] += k
+    _graph_offset += kernels
+
+
+@contextlib.contextmanager
+def graph_capture_counts():
+    """Around a CUDA graph capture: the launches it records run only when
+    the graph is replayed, so every count is left as it was before it. The
+    dict it yields is filled on exit with what the graph holds: "partial"
+    (partial-kernel launches) and "kernels" (the C entry's launches), the
+    two a replay passes to :func:`count_launches`."""
+    global _graph_offset
+    launches = mixture_logsumexp.launches
+    by_precision = dict(mixture_logsumexp.launches_by_precision)
+    c0 = _c_launches()
+    held: dict = {}
+    try:
+        yield held
+    finally:
+        held["partial"] = mixture_logsumexp.launches - launches
+        held["kernels"] = _c_launches() - c0
+        mixture_logsumexp.launches = launches
+        mixture_logsumexp.launches_by_precision.update(by_precision)
+        _graph_offset -= held["kernels"]
 
 
 def _check_cuda_inputs(a, b, log_w):

@@ -66,6 +66,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from abcsmc_tpu_torch.config import FilterType, NoiseType
 from abcsmc_tpu_torch.models.parameters import (
@@ -80,6 +81,7 @@ from abcsmc_tpu_torch.ops.resample import _stratum_points, setup_mvn_sampler
 from abcsmc_tpu_torch.parallel.mesh import (
     ParticleMesh, fetch_rows_global, single_mesh,
 )
+from abcsmc_tpu_torch.spans import StepStages
 
 _SEED_HIGH = np.iinfo(np.int32).max   # per-particle seeds in [0, 2^31 - 1)
 _M64 = (1 << 64) - 1
@@ -254,6 +256,8 @@ class GenerationResult:
     sim_events: tuple | None = None  # CUDA events around the simulate stage
     #                                  (an eager step on the card that
     #                                  simulated; None for a replayed one)
+    stages: StepStages | None = None  # the stages after it and their
+    #                                   events (none timed in a replay)
 
 
 @dataclass
@@ -300,11 +304,12 @@ _DRAW_FIELDS = tuple(f.name for f in dataclasses.fields(StepDraws))
 class _CapturedStep:
     """One later-set step captured into a CUDA graph: static input tensors
     (population or, for a precomputed step, parameters and metrics;
-    previous state; draws), the static result, and the number of kernel
-    launches the graph holds."""
+    previous state; draws), the static result, and the kernel launches the
+    graph holds (``kernels.graph_capture_counts``' "partial" and
+    "kernels")."""
 
     def __init__(self, graph, params, seeds, state, draws, result,
-                 kernel_launches, metrics=None):
+                 kernel_launches: dict, metrics=None):
         self.graph = graph
         self.params = params
         self.seeds = seeds
@@ -474,10 +479,14 @@ class Generation:
         #: steps whose MULTIVARIATE rejection loop ran past its first block
         self.mvn_eager_finishes = 0
         self._capturing = False
+        #: the stages of the step that is running (:meth:`_step` makes
+        #: them; the ranking's selection and :meth:`_finish` mark theirs)
+        self._stages = StepStages(timed=False)
         #: per set of the last run_scan / run_chain / run: the route
         #: ("eager" or "replay"), CUDA events around the set, the simulate
-        #: events of an eager set, the MULTIVARIATE count and whether its
-        #: rounds ran past the first block, and the chosen Box-Cox lambdas
+        #: events and the later stages (:class:`StepStages`) of an eager
+        #: set, the MULTIVARIATE count and whether its rounds ran past the
+        #: first block, and the chosen Box-Cox lambdas
         self.set_info: list[dict] = []
         self._graphs: dict = {}
 
@@ -719,15 +728,17 @@ class Generation:
                   n_valid):
         self.dispatches += 1
         events = None
-        if self.device.type == "cuda":
-            events = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-            events[0].record()
-        mets = self._simulate(params, seeds)
-        if events:
-            events[1].record()
-        res = self._step(params, mets, keep, n_next, draws, prev_state,
-                         n_valid)
+        with record_function("abcsmc.step"):
+            if self.device.type == "cuda":
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record()
+            with record_function("abcsmc.step.simulate"):
+                mets = self._simulate(params, seeds)
+            if events:
+                events[1].record()
+            res = self._step(params, mets, keep, n_next, draws, prev_state,
+                             n_valid)
         res.sim_events = events
         return res
 
@@ -757,9 +768,11 @@ class Generation:
                          n_valid: int | None = None) -> GenerationResult:
         """:meth:`step` with the simulator excluded: metrics are inputs."""
         self.dispatches += 1
-        return self._out_result(self._step(
-            self._in(params), [m.to(self.dtype) for m in self._in(metrics)],
-            keep, n_next, draws, prev_state, n_valid))
+        with record_function("abcsmc.step"):
+            return self._out_result(self._step(
+                self._in(params),
+                [m.to(self.dtype) for m in self._in(metrics)],
+                keep, n_next, draws, prev_state, n_valid))
 
     def _step(self, params, mets, keep, n_next, draws, prev_state, n_valid):
         params = [p.to(self.dtype) for p in params]
@@ -771,10 +784,24 @@ class Generation:
                              f"({n_true}) <= rows ({n})")
         bs = self.row_block_for(local_n)
         rank = self._rank_chunked if bs else self._rank_resident
-        d, ncomp_report, lambdas = rank(params, mets, n_true, prev_state,
-                                        draws.vdv_seed, *((bs,) if bs else ()))
-        return self._finish(params, mets, d, ncomp_report, lambdas, keep,
-                            n_next, draws, prev_state)
+        # the stages tile the step from the ranking on: the PLS fit (or,
+        # without PLS, the distances at once), van der Voet (_select), the
+        # distances and top-K, the weights, the proposal; no events in a
+        # capture (a replayed set times none)
+        stages = self._stages = StepStages(
+            timed=self.device.type == "cuda" and not self._capturing)
+        try:
+            stages.begin("pls_fit" if self.filter_type == FilterType.PLS
+                         else "topk")
+            d, ncomp_report, lambdas = rank(params, mets, n_true, prev_state,
+                                            draws.vdv_seed,
+                                            *((bs,) if bs else ()))
+            res = self._finish(params, mets, d, ncomp_report, lambdas, keep,
+                               n_next, draws, prev_state)
+        finally:
+            stages.end()
+        res.stages = stages
+        return res
 
     def _sizes(self, n_true: int):
         """(training rows, PLS component cap) of an ``n_true``-row set."""
@@ -802,6 +829,7 @@ class Generation:
         fired, the [1, A] column mask of the used components).
         ``vdv_window`` makes each shard's (scores, z-parameters, held-out
         mask, global row indices) of the test's window."""
+        self._stages.begin("vdv")
         u0_bad = None
         if self.pls_optimal_method == "vdv":
             ok, u0_bad = self._vdv_ok(vdv_window(), QT, press, vdv_seed)
@@ -816,6 +844,7 @@ class Generation:
         col_mask = (
             torch.arange(max_comp, device=self.device) < ncomp_used
         ).to(self.dtype)[None, :]
+        self._stages.begin("topk")
         return ncomp_report, col_mask
 
     def _par_center(self, prev_state):
@@ -1301,6 +1330,7 @@ class Generation:
         surv_idx, surv_par, surv_met = self._global_topk(params, mets, d,
                                                          keep)
 
+        self._stages.begin("weights")
         smean = surv_par.mean(0)
         dv = 2.0 * ((surv_par - smean[None, :]) ** 2).sum(0) / max(keep - 1, 1)
         if prev_state is None:
@@ -1313,11 +1343,13 @@ class Generation:
 
         loop = None
         if n_next == 0:
+            self._stages.end()
             nxt = [torch.zeros((0, self.par_set.npar), dtype=dt, device=sd)
                    for _, sd in self.mesh.shards]
             nxt_seeds = [torch.zeros((0,), dtype=torch.int64, device=sd)
                          for _, sd in self.mesh.shards]
         else:
+            self._stages.begin("propose")
             nxt, nxt_seeds, loop = self._propose(surv_par, w, dv, n_next,
                                                  draws)
         res = GenerationResult(
@@ -1562,6 +1594,7 @@ class Generation:
     def _note_set(self, route, events, res):
         self.set_info.append({
             "route": route, "events": events, "sim_events": res.sim_events,
+            "stages": res.stages,
             "mvn_rounds": res.mvn_rounds,
             "mvn_finished_eagerly": res.mvn_finished_eagerly,
             "box_cox_lambdas": (None if res.box_cox_lambdas is None
@@ -1620,23 +1653,18 @@ class Generation:
         """Capture ``body()`` (a step on static inputs) into a CUDA graph.
         Returns (graph, the static result, the kernel launches the graph
         holds)."""
-        from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
+        from abcsmc_tpu_torch.ops.kernels import graph_capture_counts
 
-        before = mixture_logsumexp.launches
-        by_precision = dict(mixture_logsumexp.launches_by_precision)
         torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()
-        # the MULTIVARIATE count stays on the device: read after a replay
+        # the MULTIVARIATE count stays on the device: read after a replay.
+        # The launches the capture records run at each replay, not now
         self._capturing = True
         try:
-            with torch.cuda.graph(graph):
+            with graph_capture_counts() as held, torch.cuda.graph(graph):
                 result = body()
         finally:
             self._capturing = False
-        # the wrapper counted the launches it recorded; none ran yet
-        held = mixture_logsumexp.launches - before
-        mixture_logsumexp.launches = before
-        mixture_logsumexp.launches_by_precision.update(by_precision)
         self.graph_captures += 1
         return graph, result, held
 
@@ -1700,22 +1728,24 @@ class Generation:
 
         events = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
-        events[0].record()
-        if params is not None:
-            _copy_into(cap.params, params)
-        if seeds is not None:
-            _copy_into(cap.seeds, seeds)
-        for dst, src in zip(cap.state or (), state or ()):
-            dst.copy_(src)
-        self._copy_draws(cap.draws, draws)
-        cap.graph.replay()
-        res = cap.result
-        res.mvn_rounds, res.mvn_finished_eagerly = self._finish_rejection(
-            res.mvn_loop, res.next_params)
-        events[1].record()
+        with record_function("abcsmc.step"):
+            events[0].record()
+            if params is not None:
+                _copy_into(cap.params, params)
+            if seeds is not None:
+                _copy_into(cap.seeds, seeds)
+            for dst, src in zip(cap.state or (), state or ()):
+                dst.copy_(src)
+            self._copy_draws(cap.draws, draws)
+            cap.graph.replay()
+            res = cap.result
+            res.mvn_rounds, res.mvn_finished_eagerly = (
+                self._finish_rejection(res.mvn_loop, res.next_params))
+            events[1].record()
         self.dispatches += 1
         self.graph_replays += 1
-        count_launches(cap.kernel_launches, self.weight_precision)
+        count_launches(cap.kernel_launches["partial"], self.weight_precision,
+                       cap.kernel_launches["kernels"])
         self._note_set("replay", events, cap.result)
         return cap.result
 

@@ -1040,6 +1040,61 @@ def test_fused_engine_run_equals_sequential_on_cuda(cuda):
     assert [e["simulate_ms"] is None for e in gens] == [False] * 2 + [True] * 4
 
 
+STAGE_KEYS = ("pls_fit_ms", "vdv_ms", "topk_ms", "weights_ms", "propose_ms")
+
+
+@pytest.mark.parametrize("row_block", [None, 3000],
+                         ids=["resident", "chunked"])
+def test_eager_stages_tile_the_step(cuda, row_block):
+    """An eager fit on the card: each set's simulate stage and the five
+    stages after it (the last set proposes nothing) share their boundary
+    events, so together they take 85-100 % of the set's ``device_ms``."""
+    raw, *_ = _scale_problem(1 << 16, 1000)
+    raw.update(smc_iterations=4, simulator="linear_gaussian",
+               database_filename="", device_dispatch="sequential")
+    if row_block is not None:
+        raw["row_block"] = row_block
+    a = AbcSmc(raw, device="cuda")
+    with redirect_stderr(io.StringIO()):
+        a.run_device(seed=3)
+    gens = [e for e in a.timings if e["op"] == "device_generation"]
+    assert [e["route"] for e in gens] == ["eager"] * 4
+    for e in gens:
+        stages = [e[k] for k in STAGE_KEYS]
+        assert all(ms is not None for ms in stages[:4]), e
+        assert (e["propose_ms"] is None) == (e["set"] == 3), e
+        total = e["simulate_ms"] + sum(ms for ms in stages if ms is not None)
+        assert 0.85 * e["device_ms"] <= total <= e["device_ms"] + 1e-3, e
+
+
+def test_replayed_sets_time_no_stage_and_count_their_launches(cuda):
+    """A fused fit captures its step (no event is recorded in the capture)
+    and replays it: its replayed sets read None for every stage, its eager
+    ones a time for each. ``kernel_launches`` counts what ran on either
+    route: the capture's recorded launches not at all, each replay's once,
+    so both routes count the same, one auto call a set after set 0."""
+    raw, *_ = _scale_problem(4096, 205)
+    raw.update(smc_iterations=6, simulator="linear_gaussian",
+               database_filename="")
+    counted = {}
+    for dispatch in ("sequential", "fused"):
+        a = AbcSmc(dict(raw, device_dispatch=dispatch), device="cuda")
+        before = kernels.kernel_launches()
+        with redirect_stderr(io.StringIO()):
+            a.run_device(seed=1)
+        torch.cuda.synchronize()
+        counted[dispatch] = kernels.kernel_launches() - before
+        gens = [e for e in a.timings if e["op"] == "device_generation"]
+        for e in gens:
+            replayed = e["route"] == "replay"
+            assert all((e[k] is None) == replayed for k in STAGE_KEYS[:4]), e
+        if dispatch == "fused":
+            assert [e["route"] for e in gens] == (
+                ["eager"] * 2 + ["replay"] * 4)
+    assert counted["fused"] == counted["sequential"] == 5 * (
+        kernels.launches_per_call(205, 205, 6, "auto", precision="high"))
+
+
 def test_surfaces_on_cuda(cuda, tmp_path):
     from abcsmc_tpu_torch import crc32
 
