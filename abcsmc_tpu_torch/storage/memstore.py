@@ -2,8 +2,13 @@
 
 Same job-lifecycle semantics as the SQLite store (Q/R/D/P states, attempts
 ordering, guarded writeback) but held as numpy columns, so a fully on-device
-run never touches disk. ``snapshot_to``/``load_from`` provide checkpointing by
-dumping into any other Storage (e.g. the SQLite store for durability).
+run never touches disk. ``snapshot_to`` provides checkpointing by dumping into
+any other Storage (e.g. the SQLite store for durability).
+
+Each ``insert_generation`` call appends one block of whole columns. Serials
+are the row numbers, contiguous within a block and across blocks, so a
+serial's block is found by a binary search over the blocks' first serials,
+and no operation loops over rows in Python. A block is never copied again.
 """
 
 from __future__ import annotations
@@ -14,6 +19,64 @@ import numpy as np
 
 from abcsmc_tpu_torch.storage.base import ClaimedJobs, GenerationData, Storage
 
+# status codes: the index into STATUS; 'Q' < 'R' keeps the SQL claim order
+STATUS = np.array(["Q", "R", "D", "P"])
+_R, _D = 1, 2
+
+
+class _Block:
+    """The rows of one ``insert_generation`` call: serials ``start`` to
+    ``start + n - 1``, all of set ``set_num``."""
+
+    def __init__(self, start, set_num, params, upars, seeds, posterior,
+                 n_met, now):
+        n = len(params)
+        self.start, self.n, self.set_num, self.n_met = start, n, set_num, n_met
+        self.params = params            # [n, P] float64
+        self.upars = upars              # [n, P] float64; params when absent
+        self.seeds = seeds              # [n] uint64
+        self.posterior = posterior      # [n] int64
+        # [n, M] float64; None (every row NaN) until a write, so that a
+        # write of the whole block fills its memory once
+        self.metrics = None
+        self.start_time = np.full(n, now, np.int64)
+        self.duration = np.full(n, np.nan)
+        self.status = np.zeros(n, np.uint8)
+        self.attempts = np.zeros(n, np.int64)
+
+    def serials(self):
+        return np.arange(self.start, self.start + self.n, dtype=np.int64)
+
+    def metrics_or_nan(self):
+        if self.metrics is None:
+            return np.full((self.n, self.n_met), np.nan)
+        return self.metrics
+
+
+def _run(idx):
+    """``idx`` as a slice when it is an ascending run of consecutive
+    integers (a view, and a copy at memory speed), else unchanged."""
+    if len(idx) and idx[-1] - idx[0] == len(idx) - 1 and (
+            len(idx) == 1 or bool((np.diff(idx) == 1).all())):
+        return slice(int(idx[0]), int(idx[-1]) + 1)
+    return idx
+
+
+def _cat(blocks, name):
+    """Column ``name`` of ``blocks`` end to end, as a new array."""
+    return np.concatenate([getattr(b, name) for b in blocks])
+
+
+def _one_of_each(keys, last=False):
+    """Positions, ascending, that keep one occurrence of each key: its
+    first, or with ``last`` its last. A slice when the keys ascend."""
+    if len(keys) < 2 or bool((np.diff(keys) > 0).all()):
+        return slice(0, len(keys))
+    if last:
+        return np.sort(len(keys) - 1 -
+                       np.unique(keys[::-1], return_index=True)[1])
+    return np.sort(np.unique(keys, return_index=True)[1])
+
 
 class MemoryStorage(Storage):
     shared = False  # process-private: each process writes its own copy
@@ -23,19 +86,9 @@ class MemoryStorage(Storage):
         self.par_names: list[str] = []
         self.met_names: list[str] = []
         self.has_upar = False
-        # columnar job/par/met tables, append-only
-        self.serial: list[int] = []
-        self.smc_set: list[int] = []
-        self.particle_idx: list[int] = []
-        self.start_time: list[int] = []
-        self.duration: list[float] = []
-        self.status: list[str] = []
-        self.posterior: list[int] = []
-        self.attempts: list[int] = []
-        self.seeds: list[int] = []
-        self.params: list[np.ndarray] = []
-        self.upars: list[np.ndarray] = []
-        self.metrics: list[np.ndarray] = []
+        self._blocks: list[_Block] = []
+        self._starts = np.zeros(0, np.int64)   # each block's first serial
+        self._rows = 0
 
     # -- lifecycle -------------------------------------------------------------
     def exists(self) -> bool:
@@ -48,133 +101,182 @@ class MemoryStorage(Storage):
         self.has_upar = has_upar
 
     def is_empty(self) -> bool:
-        return not self.serial
+        return self._rows == 0
 
     def insert_generation(
         self, set_num, params, seeds, upars=None, posterior_ranks=None,
         if_empty=False,
     ):
-        params = np.asarray(params, np.float64)
-        n = params.shape[0]
-        start = len(self.serial)
+        start = self._rows
         if if_empty and start != 0:
             # conditional repair insert lost the (in-process) race
             return None
-        serials = np.arange(start, start + n, dtype=np.int64)
-        now = int(time.time())
-        for i in range(n):
-            self.serial.append(start + i)
-            self.smc_set.append(set_num)
-            self.particle_idx.append(i)
-            self.start_time.append(now)
-            self.duration.append(np.nan)
-            self.status.append("Q")
-            self.posterior.append(
-                int(posterior_ranks[i]) if posterior_ranks is not None else -1
-            )
-            self.attempts.append(0)
-            self.seeds.append(int(seeds[i]))
-            self.params.append(params[i])
-            self.upars.append(
-                np.asarray(upars[i], np.float64) if upars is not None else params[i]
-            )
-            self.metrics.append(np.full(len(self.met_names), np.nan))
-        return serials
+        params = np.array(params, np.float64)
+        n = params.shape[0]
+        for name, col in (("seeds", seeds), ("upars", upars),
+                          ("posterior_ranks", posterior_ranks)):
+            if col is not None and len(col) < n:
+                raise IndexError(f"{name} has {len(col)} rows, params {n}")
+        if n:
+            self._blocks.append(_Block(
+                start, int(set_num), params,
+                params if upars is None else np.array(upars, np.float64)[:n],
+                np.array(seeds[:n], np.uint64),
+                np.full(n, -1, np.int64) if posterior_ranks is None
+                else np.array(posterior_ranks[:n], np.int64),
+                len(self.met_names), int(time.time()),
+            ))
+            self._starts = np.append(self._starts, start)
+            self._rows += n
+        return np.arange(start, start + n, dtype=np.int64)
+
+    # -- row access -----------------------------------------------------------
+    def _parts(self, rows):
+        """Split serials ``rows`` by block: (block, positions in ``rows``,
+        offsets in the block), as slices where ``rows`` is a run. A serial
+        outside the store raises IndexError before the first part."""
+        if len(rows) and (rows.min() < 0 or rows.max() >= self._rows):
+            raise IndexError(f"serial out of range [0, {self._rows})")
+        run = _run(rows)
+        if isinstance(run, slice):
+            first = np.searchsorted(self._starts, run.start, side="right")
+            for b in self._blocks[max(first - 1, 0):]:
+                if b.start >= run.stop:
+                    break
+                lo, hi = max(run.start, b.start), min(run.stop, b.start + b.n)
+                yield (b, slice(lo - run.start, hi - run.start),
+                       slice(lo - b.start, hi - b.start))
+            return
+        k = np.searchsorted(self._starts, rows, side="right") - 1
+        for j in np.unique(k):
+            b = self._blocks[j]
+            where = np.flatnonzero(k == j)
+            yield b, where, rows[where] - b.start
+
+    def _gather(self, name, rows):
+        parts = list(self._parts(rows))
+        col = getattr(parts[0][0], name)
+        out = np.empty((len(rows),) + col.shape[1:], col.dtype)
+        for b, where, local in parts:
+            out[where] = getattr(b, name)[local]
+        return out
+
+    def _status(self):
+        """Every row's status code, in serial order."""
+        return np.concatenate(
+            [b.status for b in self._blocks] or [np.zeros(0, np.uint8)])
+
+    def _sets(self):
+        """(set number, its blocks in serial order), by ascending set."""
+        for t in sorted({b.set_num for b in self._blocks}):
+            yield t, [b for b in self._blocks if b.set_num == t]
 
     # -- reads -------------------------------------------------------------------
     def read_generations(self):
-        if not self.serial:
-            return []
-        sets = np.asarray(self.smc_set)
         out = []
-        for t in np.unique(sets):
-            idx = np.nonzero(sets == t)[0]
+        for t, blocks in self._sets():
             # particleIdx order == insertion order here
             out.append(
                 GenerationData(
-                    set_num=int(t),
-                    serials=np.asarray(self.serial, np.int64)[idx],
-                    params=np.stack([self.params[i] for i in idx]),
-                    metrics=np.stack([self.metrics[i] for i in idx]),
-                    posterior_ranks=np.asarray(self.posterior, np.int64)[idx],
-                    statuses=np.asarray(self.status)[idx],
-                    seeds=np.asarray(self.seeds, np.uint64)[idx],
+                    set_num=t,
+                    serials=np.concatenate([b.serials() for b in blocks]),
+                    params=_cat(blocks, "params"),
+                    metrics=np.concatenate(
+                        [b.metrics_or_nan() for b in blocks]),
+                    posterior_ranks=_cat(blocks, "posterior"),
+                    statuses=STATUS[_cat(blocks, "status")],
+                    seeds=_cat(blocks, "seeds"),
                 )
             )
         return out
 
     def write_posterior_ranks(self, serials, ranks):
-        for s, r in zip(serials, ranks):
-            self.posterior[int(s)] = int(r)
+        serials = np.asarray(serials, np.int64)
+        ranks = np.asarray(ranks, np.int64)
+        k = min(len(serials), len(ranks))
+        # the last rank given for a serial wins, as in a loop over them
+        keep = _one_of_each(serials[:k], last=True)
+        serials, ranks = serials[keep], ranks[keep]
+        for b, where, local in self._parts(serials):
+            b.posterior[local] = ranks[where]
 
     # -- job queue -----------------------------------------------------------------
     def claim_jobs(self, n=1, serial_req=-1, posterior_req=-1):
         if serial_req > -1:
             # unknown serial -> empty claim (SQLite-store / reference parity)
-            chosen = [serial_req] if serial_req < len(self.serial) else []
+            chosen = np.array(
+                [serial_req] if serial_req < self._rows else [], np.int64)
         elif posterior_req > -1:
-            post = np.asarray(self.posterior)
-            sets = np.asarray(self.smc_set)
-            with_post = sets[post > -1]
-            if with_post.size == 0:
-                # no posterior-ranked set yet -> empty claim, matching the
-                # SQLite store (whose subquery is NULL then, selecting
-                # nothing) so the engine API is backend-invariant
-                chosen = []
-            else:
-                max_set = with_post.max()
-                chosen = [
-                    i for i in range(len(self.serial))
-                    if sets[i] == max_set and post[i] == posterior_req
-                ]
+            # no posterior-ranked set yet -> empty claim (top is None),
+            # matching the SQLite store (whose subquery is NULL then,
+            # selecting nothing) so the engine API is backend-invariant
+            top = max((b.set_num for b in self._blocks
+                       if bool((b.posterior > -1).any())), default=None)
+            chosen = np.concatenate([np.zeros(0, np.int64)] + [
+                b.start + np.flatnonzero(b.posterior == posterior_req)
+                for b in self._blocks if b.set_num == top
+            ])
         else:
-            cand = [
-                i for i in range(len(self.serial)) if self.status[i] in ("Q", "R")
-            ]
-            # order by (status, attempts): 'Q' < 'R' lexically, like the SQL
-            cand.sort(key=lambda i: (self.status[i], self.attempts[i]))
+            status = self._status()
+            cand = np.flatnonzero(status <= _R)
+            # order by (status, attempts): 'Q' < 'R' lexically, like the
+            # SQL; lexsort is stable, so ties stay in serial order
+            if len(cand):
+                cand = cand[np.lexsort(
+                    (self._gather("attempts", cand), status[cand]))]
             chosen = cand if n == -1 else cand[:n]
 
         now = int(time.time())
-        for i in chosen:
-            self.start_time[i] = now
-            self.status[i] = "R"
-            self.attempts[i] += 1
-        table = self.upars if self.has_upar else self.params
+        for b, _, local in self._parts(chosen):
+            b.start_time[local] = now
+            b.status[local] = _R
+            b.attempts[local] += 1
+        return self._claimed(chosen)
+
+    def _claimed(self, chosen):
+        if not len(chosen):
+            return ClaimedJobs(serials=np.zeros(0, np.int64),
+                               seeds=np.zeros(0, np.uint64),
+                               params=np.zeros((0, len(self.par_names))))
         return ClaimedJobs(
-            serials=np.asarray(chosen, np.int64),
-            seeds=np.asarray([self.seeds[i] for i in chosen], np.uint64),
-            params=(
-                np.stack([table[i] for i in chosen])
-                if chosen else np.zeros((0, len(self.par_names)))
-            ),
+            serials=chosen.astype(np.int64),
+            seeds=self._gather("seeds", chosen),
+            params=self._gather("upars" if self.has_upar else "params",
+                                chosen),
         )
 
     def read_runnable(self):
         """Read-only claim view: see Storage.read_runnable."""
-        chosen = sorted(
-            i for i in range(len(self.serial)) if self.status[i] in ("Q", "R")
-        )
-        table = self.upars if self.has_upar else self.params
-        return ClaimedJobs(
-            serials=np.asarray(chosen, np.int64),
-            seeds=np.asarray([self.seeds[i] for i in chosen], np.uint64),
-            params=(
-                np.stack([table[i] for i in chosen])
-                if chosen else np.zeros((0, len(self.par_names)))
-            ),
-        )
+        return self._claimed(np.flatnonzero(self._status() <= _R))
 
     def write_results(self, serials, metrics, start_times, durations):
+        serials = np.asarray(serials, np.int64)
+        metrics = np.asarray(metrics, np.float64)
+        start_times = np.asarray(start_times, np.int64)
+        durations = np.asarray(durations, np.float64)
+        k = min(len(serials), len(metrics), len(start_times), len(durations))
+        # the first writeback of a serial wins; later ones find it 'D'
+        keep = _one_of_each(serials[:k])
+        serials, metrics = serials[keep], metrics[keep]
+        start_times, durations = start_times[keep], durations[keep]
         written = 0
-        for s, met, st, dur in zip(serials, metrics, start_times, durations):
-            i = int(s)
-            if self.status[i] in ("Q", "R", "P"):
-                self.metrics[i] = np.asarray(met, np.float64)
-                self.start_time[i] = int(st)
-                self.duration[i] = float(dur)
-                self.status[i] = "D"
-                written += 1
+        for b, where, local in self._parts(serials):
+            open_ = b.status[local] != _D      # the guard: Q, R or P
+            if not open_.all():
+                where = np.arange(len(serials))[where][open_]
+                local = np.arange(b.n)[local][open_]
+            n_open = int(open_.sum())
+            col = b.metrics
+            if col is None:     # kept only once the write has succeeded
+                # the serials are distinct, so n_open == b.n is every row
+                col = (np.empty((b.n, b.n_met)) if n_open == b.n
+                       else b.metrics_or_nan())
+            col[local] = metrics[where]
+            b.metrics = col
+            b.start_time[local] = start_times[where]
+            b.duration[local] = durations[where]
+            b.status[local] = _D
+            written += n_open
         return written
 
     # -- durability -----------------------------------------------------------------
@@ -183,26 +285,19 @@ class MemoryStorage(Storage):
         durability / R-vis compatibility). The target must be empty."""
         other.create(self.par_names, self.met_names, self.has_upar)
         gens = self.read_generations()
-        for gen in gens:
-            idx = [int(s) for s in gen.serials]
-            upars = (
-                np.stack([self.upars[i] for i in idx])
-                if self.has_upar else None
-            )
+        for gen, (_, blocks) in zip(gens, self._sets()):
             serials = other.insert_generation(
                 gen.set_num,
                 gen.params,
                 gen.seeds,
-                upars,
+                _cat(blocks, "upars") if self.has_upar else None,
             )
             done = gen.statuses == "D"
             if done.any():
                 other.write_results(
                     serials[done], gen.metrics[done],
-                    np.asarray([self.start_time[i] for i in idx])[done],
-                    np.nan_to_num(
-                        np.asarray([self.duration[i] for i in idx])[done]
-                    ),
+                    _cat(blocks, "start_time")[done],
+                    np.nan_to_num(_cat(blocks, "duration")[done]),
                 )
             ranked = gen.posterior_ranks > -1
             if ranked.any():
