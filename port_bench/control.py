@@ -1,17 +1,18 @@
 """Readings that set the limits of ``correct`` (never run by the benchmark's
-own runs): the numbers of :mod:`port_bench.reference.judge` for one cell
-over many seeds in one process, from
+own runs): the numbers of the judge of a cell's plain reference
+(``references/<config>.py``) over many seeds in one process, from
 
 - ``program``: sound fits of the program, as a benchmark run makes them;
 - ``weights_bf16``: the program's own lower-precision path,
   ``weight_precision: "default"`` (one BF16 pass in the weight kernel);
 - ``reference_tf32`` / ``reference_bf16``: the plain reference in the
-  program's place, each stage's results rounded to TF32 (the float32 of a
-  TF32 matmul) or bfloat16 (``reference_float64``: not rounded);
-- ``reference_unchanged``: the reference in the program's place with every
-  proposal returning the set's own rows;
-- ``reference_ncomp_low``: the reference in the program's place ranking
-  at one PLS component, whatever the van der Voet test says;
+  program's place (its ``control_fit``), each stage's results rounded to
+  TF32 (the float32 of a TF32 matmul) or bfloat16 (``reference_float64``:
+  not rounded);
+- ``reference_<fault>``: the reference in the program's place with one of
+  the faults its ``control_fit`` knows planted (``unchanged``: every
+  proposal returns the set's own rows; ``ncomp_low``: the ranking takes
+  one PLS component, whatever the van der Voet test says);
 - ``fault_<name>``: the program with a fault of :mod:`port_bench.faults`
   planted.
 
@@ -34,7 +35,6 @@ if str(ROOT) not in sys.path:
 
 def readings(workload: str, mode: str, seed: int, device=None) -> dict:
     from port_bench import faults, registry, run
-    from port_bench.reference import judge
     from port_bench.traffic import Traffic
 
     if mode.startswith("reference_"):
@@ -43,19 +43,19 @@ def readings(workload: str, mode: str, seed: int, device=None) -> dict:
         bench = registry.benchmark()
         entry = next(w for w in bench["workloads"] if w["name"] == workload)
         cell = registry.workload(workload)
+        ref = registry.reference(entry["config"])
         traffic = Traffic(registry.config(entry["config"]), cell["traffic"],
-                          seed)
+                          seed, ref)
         spec = traffic.spec()
         dev = device or "cuda"
         kind = mode[len("reference_"):]
         rounding = kind if kind in ("tf32", "bf16") else None
-        sets = judge.control_fit(
+        sets = ref.control_fit(
             spec, seed, dev, rounding=rounding,
             fault=None if rounding or kind == "float64" else kind)
         if torch.device(dev).type == "cuda":
             torch.cuda.empty_cache()
-        return judge.judge(sets, spec, dev, seed ^ 0x5EED,
-                           int(cell["check"]["ks_rows"]))
+        return ref.judge(sets, spec, dev, seed ^ 0x5EED, cell["check"])
     argv = ["--workload", workload, "--seed", str(seed), "--seconds",
             "0.001", "--trace", "0"]
     overrides = {"weight_precision": "default"} \

@@ -11,10 +11,12 @@ A run: set-up (imports, the CUDA context, the kernel library from its
 build cache, one warm-up fit of the cell's shapes and route), then a window
 of whole fits back to back, each a fresh ``AbcSmc(config,
 device="cuda").run_device(seed=...)`` with a seed drawn from ``--seed``.
-The last fit that starts inside ``--seconds`` is finished and counted, and
-the window runs to its end. Then the comparison that decides ``correct``
-(:mod:`port_bench.reference.judge`) on fits sampled from the window by the
-seed, each number printed beside its limit. The last line of standard
+A fit starts where the window was still open as the fit before it ended
+(the collection after a fit is window time, but decides nothing); the last
+is finished and counted, and the window runs to its end. Then the
+comparison that decides ``correct`` (the judge of the configuration's plain
+reference, ``references/<config>.py``) on fits sampled from the window by
+the seed, each number printed beside its limit. The last line of standard
 output is the result: ``correct``, ``attempted`` (fits started),
 ``failed``, ``metrics`` (``--trace 0``: the cell's end-to-end metrics;
 ``--trace 1``: its per-layer metrics, from ``torch.profiler`` over the
@@ -117,7 +119,6 @@ def run(argv=None, *, device=None, overrides=None):
     ``overrides`` are configuration keys set on every fit of the window
     (the control: ``{"weight_precision": "default"}``)."""
     from port_bench import registry
-    from port_bench.reference import judge
     from port_bench.traffic import Traffic, fit_seed
 
     args = _parser().parse_args(argv)
@@ -130,6 +131,13 @@ def run(argv=None, *, device=None, overrides=None):
         return None, 2
     cell = registry.workload(args.workload)
     cfg = registry.config(entry["config"])
+    ref = registry.reference(entry["config"])
+    limits = cell["check"]["limits"]
+    if set(limits) != set(ref.NUMBERS):
+        sys.stderr.write(
+            f"port_bench: {args.workload}'s limits name {sorted(limits)}; "
+            f"its reference's numbers are {sorted(ref.NUMBERS)}\n")
+        return None, 2
 
     _pin_caches()
     import torch
@@ -149,7 +157,7 @@ def run(argv=None, *, device=None, overrides=None):
     from abcsmc_tpu_torch.models import simulators
     from abcsmc_tpu_torch.ops import kernels
 
-    traffic = Traffic(cfg, cell["traffic"], args.seed)
+    traffic = Traffic(cfg, cell["traffic"], args.seed, ref)
     sim_kwargs = cfg.get("program_simulator")
     factory = getattr(simulators,
                       f"make_{cfg['reference']['simulator']}_simulator")
@@ -203,13 +211,17 @@ def run(argv=None, *, device=None, overrides=None):
     def sample(abc) -> dict:
         """What the comparison needs of a sampled fit: its rows as the run
         store gives them back, and the weights, variances and component
-        counts of its posterior state, which the store does not hold. A
-        SQLite store's file is kept and read back after the window by the
-        reference's own reader; an in-memory store's rows are read back
-        now, so that the harness holds none of the program's objects while
-        later fits run."""
+        counts of its posterior state, which the store does not hold (with
+        whatever more the reference's ``state`` reads). A SQLite store's
+        file is kept and read back after the window by the reference's own
+        reader; an in-memory store's rows are read back now, so that the
+        harness holds none of the program's objects while later fits
+        run."""
         name = abc.config.database_filename
-        return {"state": _posterior_state(abc), "file": name or None,
+        state = _posterior_state(abc)
+        if hasattr(ref, "state"):
+            state = [{**a, **b} for a, b in zip(state, ref.state(abc))]
+        return {"state": state, "file": name or None,
                 "rows": None if name else _store_rows(abc)}
 
     # ---- set-up: one warm-up fit of the cell's shapes and route (the run
@@ -250,11 +262,14 @@ def run(argv=None, *, device=None, overrides=None):
 
     def window_open():
         # (a traced run whose last fit outran the forecast traces one more)
-        return (not index
-                or time.perf_counter() - w0 - bookkeeping < args.seconds
+        return (time.perf_counter() - w0 - bookkeeping < args.seconds
                 or bool(args.trace) and prof is None)
 
-    while window_open():
+    # read once as each fit ends: it decides both whether that fit is the
+    # window's last (and so judged where fewer than ``among`` ran) and
+    # whether another starts; the collection after it does not change it
+    still_open = True
+    while still_open:
         elapsed = time.perf_counter() - w0 - bookkeeping
         if args.trace and prof is None and (
                 elapsed >= args.seconds - TRACE_SECONDS
@@ -273,12 +288,14 @@ def run(argv=None, *, device=None, overrides=None):
         except Exception:  # a fit that fails counts, and the run goes on
             failures.append(f"fit {index}: {traceback.format_exc(limit=3)}")
             index += 1
+            still_open = window_open()
             continue
         t_book = time.perf_counter()
         fits.append(rec)
         index += 1
+        still_open = window_open()
         judged = len(sampled) < k_check and (
-            index - 1 in picks or not window_open())
+            index - 1 in picks or not still_open)
         if judged:
             sampled.append(sample(abc))
         drop(abc, keep_file=judged)
@@ -334,16 +351,15 @@ def run(argv=None, *, device=None, overrides=None):
     if on_card:
         torch.cuda.empty_cache()
     spec = traffic.spec()
-    numbers = dict.fromkeys(judge.NUMBERS, 0.0)
+    numbers = dict.fromkeys(ref.NUMBERS, 0.0)
     for i, fit_sets in enumerate(sets):
-        got = judge.judge(fit_sets, spec, device, fit_seed(args.seed, -3 - i),
-                          int(cell["check"]["ks_rows"]))
+        got = ref.judge(fit_sets, spec, device, fit_seed(args.seed, -3 - i),
+                        cell["check"])
         for key, val in got.items():
             numbers[key] = max(numbers[key], val)
     t_judge = time.perf_counter() - t_judge
     if store_dir is not None:
         shutil.rmtree(store_dir, ignore_errors=True)
-    limits = cell["check"]["limits"]
     checks = {k: {"value": v, "limit": limits[k]} for k, v in numbers.items()}
     correct = (bool(fits) and not failures and bool(sets)
                and all(v <= limits[k] for k, v in numbers.items()))

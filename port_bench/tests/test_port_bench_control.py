@@ -6,6 +6,8 @@ card."""
 
 import contextlib
 import io
+import json
+from pathlib import Path
 
 import pytest
 import torch
@@ -14,6 +16,10 @@ from port_bench import control, faults, registry, run
 from port_bench.tests import tiny
 
 CELLS = ["north_star_1m.eager_mem"]
+#: every mode's readings of tiny's copy of the cell at seeds 1-3, as the
+#: frozen judge gives them on the CPU: any change is a change of yardstick
+PINNED = json.loads(Path(__file__).with_name("pinned_readings.json")
+                    .read_text())
 
 
 def _beyond(workload, readings):
@@ -64,3 +70,12 @@ def test_programs_bf16_weights_fail_on_the_card(tmp_path, monkeypatch):
     tiny.make(tmp_path, monkeypatch, n=8192)
     got = control.readings(CELLS[0], "weights_bf16", 13)
     assert "weight_err" in _beyond(CELLS[0], got), got
+
+
+@pytest.mark.parametrize("mode,seed", [(m, s) for m in PINNED
+                                       for s in PINNED[m]])
+def test_readings_equal_the_pinned_ones(tmp_path, monkeypatch, mode, seed):
+    tiny.make(tmp_path, monkeypatch)
+    with contextlib.redirect_stderr(io.StringIO()):
+        got = control.readings(CELLS[0], mode, int(seed), device="cpu")
+    assert got == PINNED[mode][seed]

@@ -9,7 +9,6 @@ import re
 import pytest
 
 from port_bench import registry, run
-from port_bench.reference import judge
 from port_bench.tests import tiny
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -54,7 +53,8 @@ def test_every_file_parses_and_agrees(bench):
                 cell["why"]) == (w["config"], w["traffic"], w["chips"],
                                  w["why"])
         assert w["chips"] == 1
-        assert set(cell["check"]["limits"]) == set(judge.NUMBERS)
+        assert set(cell["check"]["limits"]) == set(
+            registry.reference(w["config"]).NUMBERS)
     for m in bench["end_to_end"]:
         assert m["source"] in ("host_clock", "device_trace")
         assert 0.01 <= m["bound"] <= 0.25
@@ -78,14 +78,57 @@ def test_every_file_parses_and_agrees(bench):
         assert len(registry.cell_metrics(bench, w, "end_to_end")) >= 2
 
 
-def test_new_cell_and_metric_need_only_new_files(tmp_path, monkeypatch):
-    bench = tiny.make(tmp_path, monkeypatch, n=512, sets=2)
+#: the plain reference of a configuration of another kind of fit (the
+#: same simulator under MULTIVARIATE proposals), written as a new file: its
+#: own checks, a judge that reads a piece of posterior state of its own
+#: choosing, and a record of its calls
+OTHER_REFERENCE = '''
+import numpy as np
+
+from port_bench.reference import smc
+
+NUMBERS = ("sim_err", "kept_err")
+CALLS = []
+
+
+def _mix(smc_cfg):
+    return smc.mix_matrix(len(smc_cfg["parameters"]), len(smc_cfg["metrics"]))
+
+
+def observed(config, smc_cfg, seed):
+    truth = np.full((1, len(smc_cfg["parameters"])), 0.5)
+    obs = smc.simulate(truth, np.array([7], np.uint64), _mix(smc_cfg),
+                       0.1)[0].numpy()
+    for m, v in zip(smc_cfg["metrics"], obs):
+        m["value"] = float(v)
+    return obs
+
+
+def spec(config, smc_cfg, sizes, keeps, obs):
+    return {"keeps": list(keeps), "mix": _mix(smc_cfg)}
+
+
+def state(abc):
+    return [{"kept": np.sort(np.asarray(s))} for s in abc._predictive_prior]
+
+
+def judge(sets, spec, device, seed, check):
+    CALLS.append([sorted(s) for s in sets])
+    sim = kept = 0.0
+    for s, keep in zip(sets, spec["keeps"]):
+        ref = smc.simulate(s["params"], s["seeds"], spec["mix"], 0.1).numpy()
+        sim = max(sim, float((abs(s["metrics"] - ref) / (1 + abs(ref))).max()))
+        kept = max(kept, float(len(s["survivors"]) != keep or not
+                               np.array_equal(np.sort(s["survivors"]),
+                                              s["kept"])))
+    return {"sim_err": sim, "kept_err": kept}
+'''
+
+
+def _new_cell(tmp_path, bench):
+    """A cell of other traffic (a SQLite store a fit, read back by the
+    reference's own reader) on the copy's configuration."""
     here = tmp_path / "port_bench"
-    (here / "metrics" / "fits_in_window.py").write_text(
-        'UNIT, BETTER, SOURCE = "fits", "higher", "host_clock"\n'
-        "def read(record):\n    return len(record['fits'])\n")
-    # a cell of other traffic (a SQLite store a fit, read back by the
-    # reference's own reader) and an end-to-end metric of its own
     cell = json.loads((here / "workloads" /
                        "north_star_1m.eager_mem.json").read_text())
     cell["traffic"] = {"store": "sqlite", "device_dispatch": "sequential"}
@@ -94,16 +137,61 @@ def test_new_cell_and_metric_need_only_new_files(tmp_path, monkeypatch):
     bench["workloads"].append({"name": "north_star_1m.extra",
                                "config": "north_star_1m",
                                "traffic": "extra", "chips": 1, "why": "x"})
+    return "north_star_1m.extra"
+
+
+def _new_config(tmp_path, bench):
+    """A configuration of MULTIVARIATE fits, its plain reference and a
+    cell of it."""
+    here = tmp_path / "port_bench"
+    cfg = json.loads((here / "configs" / "north_star_1m.json").read_text())
+    cfg["name"] = "mvn_fit"
+    cfg["smc"]["noise"] = "MULTIVARIATE"
+    del cfg["observed"]
+    (here / "configs" / "mvn_fit.json").write_text(json.dumps(cfg))
+    (here / "references" / "mvn_fit.py").write_text(OTHER_REFERENCE)
+    cell = {"config": "mvn_fit", "traffic_name": "mem", "chips": 1,
+            "why": "x", "traffic": {"store": "memory"},
+            "check": {"fits": 1, "among": 2,
+                      "limits": {"sim_err": 2e-5, "kept_err": 0.0}}}
+    (here / "workloads" / "mvn_fit.mem.json").write_text(json.dumps(cell))
+    bench["configs"].append({**next(c for c in bench["configs"]
+                                    if c["name"] == "north_star_1m"),
+                             "name": "mvn_fit",
+                             "file": "port_bench/configs/mvn_fit.json"})
+    bench["workloads"].append({"name": "mvn_fit.mem", "config": "mvn_fit",
+                               "traffic": "mem", "chips": 1, "why": "x"})
+    return "mvn_fit.mem"
+
+
+@pytest.mark.parametrize("new", [_new_cell, _new_config],
+                         ids=["cell", "config"])
+def test_new_cell_and_metric_need_only_new_files(tmp_path, monkeypatch, new):
+    bench = tiny.make(tmp_path, monkeypatch, n=512, sets=2)
+    here = tmp_path / "port_bench"
+    before = {p: p.read_bytes() for p in tmp_path.rglob("*") if p.is_file()}
+    (here / "metrics" / "fits_in_window.py").write_text(
+        'UNIT, BETTER, SOURCE = "fits", "higher", "host_clock"\n'
+        "def read(record):\n    return len(record['fits'])\n")
+    # a new cell, and an end-to-end metric of its own
+    name = new(tmp_path, bench)
     bench["end_to_end"].append({"name": "fits_in_window", "unit": "fits",
                                 "better": "higher", "bound": 0.05,
                                 "source": "host_clock",
-                                "workloads": ["north_star_1m.extra"]})
+                                "workloads": [name]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    result, code = run.run(["--workload", "north_star_1m.extra", "--seed",
-                            "3", "--seconds", "0.5", "--trace", "0"],
-                           device="cpu")
+    del before[tmp_path / "BENCHMARK.json"]
+    result, code = run.run(["--workload", name, "--seed", "3", "--seconds",
+                            "0.5", "--trace", "0"], device="cpu")
     assert code == 0 and result["correct"]
     assert result["metrics"]["fits_in_window"]["value"] == result["attempted"]
+    limits = registry.workload(name)["check"]["limits"]
+    assert {k: c["limit"] for k, c in result["checks"].items()} == limits
+    if new is _new_config:
+        # its own judge ran, on sets that carry its own piece of state
+        calls = registry.reference("mvn_fit").CALLS
+        assert calls and all("kept" in s for s in calls[0])
+    assert {p: p.read_bytes() for p in before} == before
 
 
 def test_harness_imports_nothing_forbidden():

@@ -75,7 +75,8 @@ def test_program_in_float64_agrees_with_the_reference(cell):
     cfg = registry.config(entry["config"])
     cfg["smc"].update(num_samples=2048, smc_iterations=3,
                       predictive_prior_fraction=0.05)
-    tr = Traffic(cfg, registry.workload(cell)["traffic"], 2147483650)
+    tr = Traffic(cfg, registry.workload(cell)["traffic"], 2147483650,
+                 registry.reference(entry["config"]))
     sim = None
     if cfg["program_simulator"] is not None:
         sim = simulators.make_linear_gaussian_simulator(
@@ -97,7 +98,8 @@ def test_reference_in_the_programs_place_reads_near_zero():
     cfg = registry.config("north_star_1m")
     cfg["smc"].update(num_samples=2048, smc_iterations=3,
                       predictive_prior_fraction=0.05)
-    tr = Traffic(cfg, {"store": "memory"}, 7)
+    tr = Traffic(cfg, {"store": "memory"}, 7,
+                 registry.reference("north_star_1m"))
     spec = tr.spec()
     got = judge.judge(judge.control_fit(spec, 3, "cpu", rounding=None),
                       spec, "cpu", 3, 2048)
@@ -113,7 +115,8 @@ def test_vdv_normal_limit_matches_sign_flips():
     count reading 0 beside its neighbours."""
     cfg = registry.config("north_star_1m")
     cfg["smc"].update(num_samples=4096, smc_iterations=1)
-    tr = Traffic(cfg, {"store": "memory"}, 5)
+    tr = Traffic(cfg, {"store": "memory"}, 5,
+                 registry.reference("north_star_1m"))
     spec = tr.spec()
     s = judge.control_fit(spec, 5, "cpu", rounding=None)[0]
     params = torch.as_tensor(s["params"])

@@ -1,13 +1,19 @@
 """A run's result line and its guards, driven on the CPU at a tiny size."""
 
+import contextlib
+import gc
+import io
 import json
+import random
 import sys
+import time
 import types
 
 import pytest
 
-from port_bench import run
+from port_bench import registry, run
 from port_bench.tests import tiny
+from port_bench.traffic import fit_seed
 
 ARGS = ["--seed", "2147483711", "--seconds", "0.5"]
 
@@ -73,3 +79,41 @@ def test_result_is_json(small):
     result, _ = run.run(["--workload", "north_star_1m.eager_mem", *ARGS,
                          "--trace", "0"], device="cpu")
     assert json.loads(json.dumps(result)) == result
+
+
+def test_window_closing_in_the_collection_judges_its_last_fit(small,
+                                                              monkeypatch):
+    """The clock passes the window's end during the collection after a fit
+    that is not among the picks, with fewer fits than ``among``: that fit
+    was not the last, the next one is, and it is judged."""
+    cell = "north_star_1m.eager_mem"
+    check = registry.workload(cell)["check"]
+    seed = next(s for s in range(2147483711, 2147483811)
+                if 0 not in random.Random(fit_seed(s, -2)).sample(
+                    range(check["among"]), check["fits"]))
+    real, collect, skew = time.perf_counter, gc.collect, [0.0]
+
+    def late_collect(*args):
+        skew[0] += 1000.0
+        return collect(*args)
+
+    monkeypatch.setattr(run.time, "perf_counter", lambda: real() + skew[0])
+    monkeypatch.setattr(run.gc, "collect", late_collect)
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        result, code = run.run(["--workload", cell, "--seed", str(seed),
+                                "--seconds", "30", "--trace", "0"],
+                               device="cpu")
+    assert code == 0 and result["attempted"] == 2, err.getvalue()
+    assert result["correct"] is True and "judged 1 fits" in err.getvalue()
+
+
+def test_limits_must_name_the_references_numbers(small):
+    path = registry.HERE / "workloads" / "north_star_1m.eager_mem.json"
+    cell = json.loads(path.read_text())
+    cell["check"]["limits"]["extra"] = 1.0
+    path.write_text(json.dumps(cell))
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        result, code = run.run(["--workload", "north_star_1m.eager_mem",
+                                *ARGS, "--trace", "0"], device="cpu")
+    assert result is None and code == 2
+    assert "its reference's numbers are" in err.getvalue()

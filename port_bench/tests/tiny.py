@@ -19,7 +19,7 @@ def make(tmp: Path, monkeypatch, n: int = N, sets: int = SETS) -> dict:
     """Write the copy under ``tmp`` and point the registry at it. Returns
     its BENCHMARK.json."""
     here = tmp / "port_bench"
-    for sub in ("metrics", "kernels"):
+    for sub in ("metrics", "kernels", "references"):
         shutil.copytree(registry.HERE / sub, here / sub)
     bench = copy.deepcopy(registry.benchmark())
     (here / "configs").mkdir(parents=True)

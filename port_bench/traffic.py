@@ -1,7 +1,8 @@
 """The one generator of the benchmark's traffic: from a configuration file,
-a cell's traffic parameters and ``--seed`` it makes every fit a run asks
-for. A fit is what a user starts: a fresh ``AbcSmc`` from a configuration
-dict, then ``run_device(seed=...)``, prior to posterior.
+its plain reference (``references/<config>.py``), a cell's traffic
+parameters and ``--seed`` it makes every fit a run asks for. A fit is what a
+user starts: a fresh ``AbcSmc`` from a configuration dict, then
+``run_device(seed=...)``, prior to posterior.
 
 Traffic parameters (``traffic`` in ``workloads/<cell>.json``):
 
@@ -9,10 +10,9 @@ Traffic parameters (``traffic`` in ``workloads/<cell>.json``):
   file for each fit, in a directory under ``TMPDIR``);
 - ``device_dispatch``: the configuration key of that name.
 
-The observed row is the configuration's own (``observed: "config"``), or is
-simulated by the plain reference at a truth drawn from the seed
-(``observed: {"truth_low", "truth_high", "simulation_seed"}``). Every fit
-of a run shares it; each fit draws its own seed from the run's.
+The observed row is the reference's (its ``observed``), made once from the
+run's seed; every fit of a run shares it, and each fit draws its own seed
+from the run's.
 """
 
 from __future__ import annotations
@@ -20,8 +20,6 @@ from __future__ import annotations
 import copy
 
 import numpy as np
-
-from port_bench.reference import judge, smc
 
 _M64 = (1 << 64) - 1
 
@@ -42,30 +40,17 @@ def fit_seed(run_seed: int, index: int) -> int:
 
 class Traffic:
     """One run's traffic: the fit configuration, the observed row, the
-    sets' sizes and keeps, and what the reference is given."""
+    sets' sizes and keeps, and the configuration's plain reference
+    (``reference``, a module of :func:`port_bench.registry.reference`)."""
 
-    def __init__(self, config: dict, traffic: dict, seed: int):
-        self.traffic = traffic
+    def __init__(self, config: dict, traffic: dict, seed: int, reference):
+        self.config, self.traffic, self.reference = config, traffic, reference
         smc_cfg = copy.deepcopy(config["smc"])
         smc_cfg["device_dispatch"] = traffic.get("device_dispatch", "auto")
-        ref = self.ref = config["reference"]
         self.npar = len(smc_cfg["parameters"])
         self.nmet = len(smc_cfg["metrics"])
-        self.mix = smc.mix_matrix(self.npar, self.nmet)
-        self.noise_sd = float(ref["noise_sd"])
-        obs_spec = config["observed"]
-        if obs_spec == "config":
-            self.obs = np.array([m["value"] for m in smc_cfg["metrics"]],
-                                np.float64)
-        else:
-            truth = np.random.default_rng(int(seed) & _M64).uniform(
-                obs_spec["truth_low"], obs_spec["truth_high"], self.npar)
-            self.obs = smc.simulate(
-                truth[None, :],
-                np.array([obs_spec["simulation_seed"]], np.uint64),
-                self.mix, self.noise_sd)[0].numpy()
-            for m, v in zip(smc_cfg["metrics"], self.obs):
-                m["value"] = float(v)
+        self.obs = np.asarray(reference.observed(config, smc_cfg, seed),
+                              np.float64)
         self.smc = smc_cfg
         sets = int(smc_cfg["smc_iterations"])
         n = int(smc_cfg["num_samples"])
@@ -85,17 +70,7 @@ class Traffic:
         cfg.update(overrides)
         return cfg
 
-    def spec(self) -> judge.FitSpec:
-        """What the reference is given of every fit of this run."""
-        lo = np.array([p["par1"] for p in self.smc["parameters"]], np.float64)
-        hi = np.array([p["par2"] for p in self.smc["parameters"]], np.float64)
-        if any(p["dist_type"] != "UNIFORM" or p.get("num_type") != "FLOAT"
-               for p in self.smc["parameters"]):
-            raise SystemExit("port_bench: the reference takes continuous "
-                             "UNIFORM priors only")
-        return judge.FitSpec(
-            sizes=list(self.sizes), keeps=list(self.keeps), lo=lo, hi=hi,
-            obs=self.obs, mix=self.mix, noise_sd=self.noise_sd,
-            fraction=float(self.smc.get("pls_training_fraction", 0.5)),
-            vdv_alpha=float(self.ref["vdv_alpha"]),
-            vdv_rows=int(self.ref["vdv_window_rows"]))
+    def spec(self):
+        """What the reference's judge is given of every fit of this run."""
+        return self.reference.spec(self.config, self.smc, self.sizes,
+                                   self.keeps, self.obs)
