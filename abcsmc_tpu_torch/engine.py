@@ -162,9 +162,14 @@ class AbcSmc:
         #: "device_generation" entry per set (its "set"; CUDA-event
         #: milliseconds of the step, "device_ms", and of its stages,
         #: "simulate_ms", "pls_fit_ms", "vdv_ms", "topk_ms", "weights_ms",
-        #: "propose_ms", each None where the stage did not run or was not
-        #: timed: the CPU, a replayed set, a filter without PLS) and one
-        #: "run_device_phases" entry per run ("first_set", "sets"; the host
+        #: "propose_ms", "mvn_ms", each None where the stage did not run or
+        #: was not timed: the CPU, a replayed set, a filter without PLS,
+        #: INDEPENDENT noise; the simulator's time steps a row, "sim_steps",
+        #: and the MULTIVARIATE proposal's Cholesky factor, "mvn_factor")
+        #: and one "run_device_phases" entry per run ("first_set", "sets";
+        #: the host seconds of the graph captures, span "abcsmc.capture",
+        #: in "capture_s" and of the replayed sets, span "abcsmc.replay",
+        #: in "replay_s"; the host
         #: seconds of the spans "abcsmc.dispatch" in "dispatch_s" and
         #: "abcsmc.mirror" in "mirror_s", inside it "abcsmc.fetch" in
         #: "fetch_s" with the bytes copied from the device in "fetch_bytes",
@@ -955,6 +960,13 @@ class AbcSmc:
                 # holds
                 entry["mvn_rounds"] = inf["mvn_rounds"]
                 entry["mvn_finished_eagerly"] = inf["mvn_finished_eagerly"]
+                # the proposal's Cholesky factor (None: not MULTIVARIATE,
+                # or the set proposed nothing), and the simulator's time
+                # steps a row (None: no time loop, or nothing simulated)
+                entry["mvn_factor"] = (
+                    None if inf["mvn_factor"] is None
+                    else _host(inf["mvn_factor"]).tolist())
+                entry["sim_steps"] = inf["sim_steps"]
                 if inf["box_cox_lambdas"] is not None:
                     entry["box_cox_lambdas"] = _host(
                         inf["box_cox_lambdas"]).tolist()
@@ -966,6 +978,7 @@ class AbcSmc:
             "graph_captures": gen.graph_captures,
             "graph_replays": gen.graph_replays,
             "capture_s": gen.capture_seconds,
+            "replay_s": gen.replay_seconds,
             "mvn_eager_finishes": gen.mvn_eager_finishes,
             "shards": gen.mesh.size,
         })
@@ -1055,6 +1068,8 @@ class AbcSmc:
                    "sim_events": res.sim_events, "stages": res.stages,
                    "mvn_rounds": res.mvn_rounds,
                    "mvn_finished_eagerly": res.mvn_finished_eagerly,
+                   "mvn_factor": res.mvn_factor,
+                   "sim_steps": res.sim_steps,
                    "box_cox_lambdas": res.box_cox_lambdas}
             info.append(inf)
             if split_t:

@@ -70,6 +70,10 @@ class DeviceSimulator(Simulator):
     #: True when ``batch_fn`` can be recorded into a CUDA graph (no host
     #: round trip); ``Generation.capturable`` reads it
     capturable = True
+    #: time steps its loop has run, summed over rows and calls (each step
+    #: of a call adds the call's rows); None for a simulator with no time
+    #: loop. ``Generation`` reads it around each set's simulate stage
+    row_steps: int | None = None
 
     def __init__(self, fn: Callable, nmet: int | None = None):
         self.fn = fn
@@ -468,16 +472,20 @@ def make_gaussian_simulator(n_obs: int = 100) -> DeviceSimulator:
 # The model families (ports of abcsmc_tpu.models.simulators, same formulas)
 # --------------------------------------------------------------------------- #
 
-def _family(core: Callable, nmet: int) -> DeviceSimulator:
+def _family(core: Callable, nmet: int,
+            time_loop: bool = False) -> DeviceSimulator:
     """A device simulator from ``core(params, noise) -> metrics``: in
     production ``noise`` is the :class:`CounterNoise` of the particles'
     seeds. ``core`` stays reachable as ``metrics_from_noise`` so that a test
-    can feed it another source of the same draws."""
+    can feed it another source of the same draws. A ``time_loop`` family's
+    ``core`` adds its rows to the simulator's ``row_steps`` once a step."""
     sim = DeviceSimulator(
         lambda params, seeds: core(params, CounterNoise(seeds, params.dtype)),
         nmet=nmet,
     )
     sim.metrics_from_noise = core
+    if time_loop:
+        sim.row_steps = 0
     return sim
 
 
@@ -586,12 +594,14 @@ def make_sir_simulator(population: int = 10_000, t_steps: int = 160,
             total_inc = total_inc + new_inf
             time_inc = time_inc + t * new_inf
             incidence[t] = new_inf
+            sim.row_steps += n
         mean_time = time_inc / torch.clamp_min(total_inc, 1.0)
         half = _first_reaching_half(incidence, total_inc).to(dt)
         return torch.stack([r + i, peak, peak_time, duration, mean_time,
                             half], dim=1)
 
-    return _family(core, nmet=6)
+    sim = _family(core, nmet=6, time_loop=True)
+    return sim
 
 
 def make_seir_campaign_simulator(population: int = 100_000,
@@ -648,13 +658,15 @@ def make_seir_campaign_simulator(population: int = 100_000,
             before = before + torch.where(t < vax_day, new_i,
                                           torch.zeros_like(new_i))
             onsets[t] = new_i
+            sim.row_steps += n
         half = _first_reaching_half(onsets, total).to(dt)
         attack_unvax = total / torch.clamp_min(population - v, 1.0)
         return torch.stack([r + i + e, peak, peak_time, before,
                             total - before, attack_unvax, duration, half],
                            dim=1)
 
-    return _family(core, nmet=8)
+    sim = _family(core, nmet=8, time_loop=True)
+    return sim
 
 
 def make_lotka_volterra_simulator(t_steps: int = 320, dt: float = 0.1,
@@ -695,10 +707,12 @@ def make_lotka_volterra_simulator(t_steps: int = 320, dt: float = 0.1,
             if t in obs_steps:
                 xs.append(x)
                 ys.append(y)
+            sim.row_steps += n
         obs = torch.stack(xs + ys, dim=1)
         return obs + noise_sd * noise.normals(2 * n_obs)
 
-    return _family(core, nmet=2 * n_obs)
+    sim = _family(core, nmet=2 * n_obs, time_loop=True)
+    return sim
 
 
 def make_ricker_simulator(t_steps: int = 100, n0: float = 1.0,
@@ -753,6 +767,7 @@ def make_ricker_simulator(t_steps: int = 100, n0: float = 1.0,
                               1e-9, 1e6)
             if t >= burn_in:
                 ys[:, t - burn_in] = poisson(phi * pop, u, z[:, 1])
+            sim.row_steps += n
         m = _tree_sum(ys) / t_steps
         yc = ys - m[:, None]
         ss = _tree_sum(yc * yc)
@@ -763,7 +778,8 @@ def make_ricker_simulator(t_steps: int = 100, n0: float = 1.0,
         zeros = _tree_sum((ys == 0).to(dt))
         return torch.stack([m, sd, ac1, ac2, zeros, ys.amax(dim=1)], dim=1)
 
-    return _family(core, nmet=6)
+    sim = _family(core, nmet=6, time_loop=True)
+    return sim
 
 
 def make_gk_simulator(n_obs: int = 500) -> DeviceSimulator:

@@ -258,6 +258,11 @@ class GenerationResult:
     #                                  simulated; None for a replayed one)
     stages: StepStages | None = None  # the stages after it and their
     #                                   events (none timed in a replay)
+    sim_steps: float | None = None  # time steps the simulate stage ran a
+    #                                 row (a replay: the captured step's;
+    #                                 None: no time loop, or no simulate)
+    mvn_factor: torch.Tensor | None = None  # [P, P] the MULTIVARIATE
+    #                                         proposal's Cholesky factor
 
 
 @dataclass
@@ -476,6 +481,10 @@ class Generation:
         self.graph_captures = 0
         self.graph_replays = 0
         self.capture_seconds = 0.0
+        #: host seconds of the replayed sets (:meth:`_replay`, span
+        #: ``abcsmc.replay``): copies in, the replay, the MULTIVARIATE
+        #: count read and any eager finish of its rounds
+        self.replay_seconds = 0.0
         #: steps whose MULTIVARIATE rejection loop ran past its first block
         self.mvn_eager_finishes = 0
         self._capturing = False
@@ -486,7 +495,8 @@ class Generation:
         #: ("eager" or "replay"), CUDA events around the set, the simulate
         #: events and the later stages (:class:`StepStages`) of an eager
         #: set, the MULTIVARIATE count and whether its rounds ran past the
-        #: first block, and the chosen Box-Cox lambdas
+        #: first block, the proposal's Cholesky factor, the simulator's time
+        #: steps a row, and the chosen Box-Cox lambdas
         self.set_info: list[dict] = []
         self._graphs: dict = {}
 
@@ -734,13 +744,23 @@ class Generation:
                           torch.cuda.Event(enable_timing=True))
                 events[0].record()
             with record_function("abcsmc.step.simulate"):
-                mets = self._simulate(params, seeds)
+                mets, sim_steps = self._simulate_counted(params, seeds)
             if events:
                 events[1].record()
             res = self._step(params, mets, keep, n_next, draws, prev_state,
                              n_valid)
-        res.sim_events = events
+        res.sim_events, res.sim_steps = events, sim_steps
         return res
+
+    def _simulate_counted(self, params, seeds):
+        """:meth:`_simulate`, and the time steps the simulator's loop ran a
+        row (its ``row_steps`` counter over the rows; None without one)."""
+        before = getattr(self.simulator, "row_steps", None)
+        mets = self._simulate(params, seeds)
+        if before is None:
+            return mets, None
+        rows = sum(p.shape[0] for p in params)
+        return mets, (self.simulator.row_steps - before) / max(rows, 1)
 
     def _simulate(self, params, seeds):
         """Metrics [n, M] of each shard. Where the row passes are chunked
@@ -1341,7 +1361,7 @@ class Generation:
             w = torch.exp(log_w)
             w = w / torch.sqrt((w * w).sum())   # L2-normalize (parity quirk)
 
-        loop = None
+        loop = factor = None
         if n_next == 0:
             self._stages.end()
             nxt = [torch.zeros((0, self.par_set.npar), dtype=dt, device=sd)
@@ -1350,11 +1370,12 @@ class Generation:
                          for _, sd in self.mesh.shards]
         else:
             self._stages.begin("propose")
-            nxt, nxt_seeds, loop = self._propose(surv_par, w, dv, n_next,
-                                                 draws)
+            nxt, nxt_seeds, loop, factor = self._propose(
+                surv_par, w, dv, n_next, draws, self._stages)
         res = GenerationResult(
             mets, d, surv_idx, surv_par, surv_met, w, dv, nxt, nxt_seeds,
             ncomp_report, lambdas)
+        res.mvn_factor = factor
         if self._capturing:
             res.mvn_loop = loop
         else:
@@ -1494,7 +1515,7 @@ class Generation:
         draw. Returns (next_params [N2, P], seeds, the count of the
         MULTIVARIATE rejection loop; 0 with INDEPENDENT noise)."""
         self.dispatches += 1
-        nxt, seeds, loops = self._propose(surv_par, w, dv, n_next, draws)
+        nxt, seeds, loops, _ = self._propose(surv_par, w, dv, n_next, draws)
         rounds = self._finish_rejection(loops, nxt)[0]
         return self._out(nxt), self._out(seeds), rounds
 
@@ -1527,28 +1548,26 @@ class Generation:
         u = pick_draw * cdf[-1]
         return torch.clamp_max(torch.searchsorted(cdf, u), keep - 1)
 
-    def _propose(self, surv_par, w, dv, n_next: int, draws: StepDraws):
+    def _propose(self, surv_par, w, dv, n_next: int, draws: StepDraws,
+                 stages: StepStages | None = None):
         """Weighted resample of the survivors + truncated perturbation
         (src/AbcSmc.cpp:479-553), each shard its ``padded(n_next) / size``
         rows from its own draws. Returns (next_params, seeds, the
         MULTIVARIATE rejection loops after their first block, one per
-        shard, or None): the caller reads their count
-        (:meth:`_finish_rejection`)."""
+        shard, or None, and the MULTIVARIATE Cholesky factor or None): the
+        caller reads the loops' count (:meth:`_finish_rejection`). With
+        MULTIVARIATE noise every shard picks first; then ``stages``, where
+        given, runs the stage ``mvn`` over the factor and the first block
+        of rounds, and ends it."""
         dt = self.dtype
         mesh = self.mesh
         local_next = mesh.padded(n_next) // mesh.size
         mvn = self.noise_type == NoiseType.MULTIVARIATE
-        nxts, seeds, loops = [], [], [] if mvn else None
+        nxts, seeds, loops, mus = [], [], [] if mvn else None, []
         rep, L = {}, {}
         for i, (s, dev) in enumerate(mesh.shards):
             if dev not in rep:
                 rep[dev] = (surv_par.to(dev, dt), w.to(dev), dv.to(dev))
-                if mvn:
-                    # covariance with the n-1 divisor in full FP32, diagonal
-                    # alone doubled; a collapsed column gives a NaN factor,
-                    # as in JAX: no row is ever accepted and every row
-                    # falls back to its mu
-                    L[dev] = setup_mvn_sampler(rep[dev][0])
             sp, wi, dvi = rep[dev]
             pick = self._pick(wi, _shard(draws.pick, i), n_next, local_next,
                               s)
@@ -1569,17 +1588,31 @@ class Generation:
                 continue
             mu = sp[pick]
             if mvn:
-                loop = self.par_set.multivariate_rejection(
-                    mu, L[dev], _shard(draws.noise_eps, i), self.max_retries,
-                    draws.retry_seed, self.rejection_block,
-                    row0=s * local_next,
-                )
-                loops.append(loop)
-                nxt = loop.values()
-            else:
-                nxt = self.par_set.noise_independent(mu, dvi, noise_u)
-            nxts.append(nxt.to(dt))
-        return nxts, seeds, loops
+                mus.append(mu)
+                continue
+            nxts.append(self.par_set.noise_independent(mu, dvi, noise_u)
+                        .to(dt))
+        if not mvn:
+            return nxts, seeds, None, None
+        if stages is not None:
+            stages.begin("mvn")
+        for i, ((s, dev), mu) in enumerate(zip(mesh.shards, mus)):
+            if dev not in L:
+                # covariance with the n-1 divisor in full FP32, diagonal
+                # alone doubled; a collapsed column gives a NaN factor,
+                # as in JAX: no row is ever accepted and every row
+                # falls back to its mu
+                L[dev] = setup_mvn_sampler(rep[dev][0])
+            loop = self.par_set.multivariate_rejection(
+                mu, L[dev], _shard(draws.noise_eps, i), self.max_retries,
+                draws.retry_seed, self.rejection_block,
+                row0=s * local_next,
+            )
+            loops.append(loop)
+            nxts.append(loop.values().to(dt))
+        if stages is not None:
+            stages.end()
+        return nxts, seeds, loops, L[mesh.shards[0][1]]
 
     # ------------------------------------------------------- fused dispatch
     @staticmethod
@@ -1597,6 +1630,9 @@ class Generation:
             "stages": res.stages,
             "mvn_rounds": res.mvn_rounds,
             "mvn_finished_eagerly": res.mvn_finished_eagerly,
+            "mvn_factor": (None if res.mvn_factor is None
+                           else res.mvn_factor.clone()),
+            "sim_steps": res.sim_steps,
             "box_cox_lambdas": (None if res.box_cox_lambdas is None
                                 else res.box_cox_lambdas.clone()),
         })
@@ -1624,29 +1660,33 @@ class Generation:
         allocated inside the capture (the graph's own pool) and its
         arrival counters and rerun flag are reset by its prologue kernel,
         which is part of the graph (a folded call, at up to 512 survivors,
-        has no counters: its rerun flags are written whole each replay)."""
+        has no counters: its rerun flags are written whole each replay).
+        The whole capture is the range ``abcsmc.capture``."""
         t0 = time.perf_counter()
-        params = _tmap(torch.empty_like, like.next_params)
-        seeds = _tmap(torch.empty_like, like.next_seeds)
-        state = tuple(torch.empty_like(x) for x in (
-            like.survivor_params, like.weights, like.doubled_variance))
-        draws = StepDraws(*(
-            _tmap(torch.empty_like, getattr(like_draws, f))
-            for f in _DRAW_FIELDS))
-        # a valid input for the capture pass's shape-only work
-        _copy_into(params, like.next_params)
-        _copy_into(seeds, like.next_seeds)
-        for dst, src in zip(state, (like.survivor_params, like.weights,
-                                    like.doubled_variance)):
-            dst.copy_(src)
-        self._copy_draws(draws, like_draws)
+        with record_function("abcsmc.capture"):
+            params = _tmap(torch.empty_like, like.next_params)
+            seeds = _tmap(torch.empty_like, like.next_seeds)
+            state = tuple(torch.empty_like(x) for x in (
+                like.survivor_params, like.weights, like.doubled_variance))
+            draws = StepDraws(*(
+                _tmap(torch.empty_like, getattr(like_draws, f))
+                for f in _DRAW_FIELDS))
+            # a valid input for the capture pass's shape-only work
+            _copy_into(params, like.next_params)
+            _copy_into(seeds, like.next_seeds)
+            for dst, src in zip(state, (like.survivor_params, like.weights,
+                                        like.doubled_variance)):
+                dst.copy_(src)
+            self._copy_draws(draws, like_draws)
 
-        def body():
-            mets = self._simulate(params, seeds)
-            return self._step(params, mets, keep, n, draws, state, None)
+            def body():
+                mets, sim_steps = self._simulate_counted(params, seeds)
+                res = self._step(params, mets, keep, n, draws, state, None)
+                res.sim_steps = sim_steps
+                return res
 
-        graph, result, held = self._record(body)
-        self.capture_seconds += time.perf_counter() - t0
+            graph, result, held = self._record(body)
+            self.capture_seconds += time.perf_counter() - t0
         return _CapturedStep(graph, params, seeds, state, draws, result, held)
 
     def _record(self, body):
@@ -1723,30 +1763,36 @@ class Generation:
         the static result (valid until the next replay). A MULTIVARIATE
         step's count is read here, once per set, and a set whose rows were
         not all accepted in the graph's block is finished eagerly in place
-        (:meth:`_finish_rejection`) before the caller draws the next set."""
+        (:meth:`_finish_rejection`) before the caller draws the next set.
+        The whole of it is the range ``abcsmc.replay``, its host seconds
+        added to ``replay_seconds``."""
         from abcsmc_tpu_torch.ops.kernels import count_launches
 
-        events = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-        with record_function("abcsmc.step"):
-            events[0].record()
-            if params is not None:
-                _copy_into(cap.params, params)
-            if seeds is not None:
-                _copy_into(cap.seeds, seeds)
-            for dst, src in zip(cap.state or (), state or ()):
-                dst.copy_(src)
-            self._copy_draws(cap.draws, draws)
-            cap.graph.replay()
-            res = cap.result
-            res.mvn_rounds, res.mvn_finished_eagerly = (
-                self._finish_rejection(res.mvn_loop, res.next_params))
-            events[1].record()
-        self.dispatches += 1
-        self.graph_replays += 1
-        count_launches(cap.kernel_launches["partial"], self.weight_precision,
-                       cap.kernel_launches["kernels"])
-        self._note_set("replay", events, cap.result)
+        t0 = time.perf_counter()
+        with record_function("abcsmc.replay"):
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            with record_function("abcsmc.step"):
+                events[0].record()
+                if params is not None:
+                    _copy_into(cap.params, params)
+                if seeds is not None:
+                    _copy_into(cap.seeds, seeds)
+                for dst, src in zip(cap.state or (), state or ()):
+                    dst.copy_(src)
+                self._copy_draws(cap.draws, draws)
+                cap.graph.replay()
+                res = cap.result
+                res.mvn_rounds, res.mvn_finished_eagerly = (
+                    self._finish_rejection(res.mvn_loop, res.next_params))
+                events[1].record()
+            self.dispatches += 1
+            self.graph_replays += 1
+            count_launches(cap.kernel_launches["partial"],
+                           self.weight_precision,
+                           cap.kernel_launches["kernels"])
+            self._note_set("replay", events, cap.result)
+        self.replay_seconds += time.perf_counter() - t0
         return cap.result
 
     #: a bucket is captured only when at least this many of its sets would

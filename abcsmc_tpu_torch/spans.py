@@ -22,7 +22,9 @@ import torch
 from torch.profiler import record_function
 
 #: the timed stages of the eager step after its simulate stage, in order
-STAGES = ("pls_fit", "vdv", "topk", "weights", "propose")
+#: (``mvn``, the MULTIVARIATE proposal's covariance, factor and first block
+#: of rejection rounds, runs only with that noise)
+STAGES = ("pls_fit", "vdv", "topk", "weights", "propose", "mvn")
 
 
 @contextlib.contextmanager

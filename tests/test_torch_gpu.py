@@ -1095,6 +1095,50 @@ def test_replayed_sets_time_no_stage_and_count_their_launches(cuda):
         kernels.launches_per_call(205, 205, 6, "auto", precision="high"))
 
 
+def test_fused_mvn_time_loop_captures_once_and_replays(cuda):
+    """The builtin ``sir`` (a 160-step loop) under MULTIVARIATE noise on the
+    fused route: set 0 and the warm-up set eagerly, one capture inside an
+    ``abcsmc.capture`` range, each later set an ``abcsmc.replay`` range
+    around its ``abcsmc.step``, their host seconds in ``capture_s`` and
+    ``replay_s``. Every set reads the loop's 160 steps a row (a replay the
+    captured step's); the eager sets time the ``mvn`` stage, the replays
+    none."""
+    import json
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    raw = json.loads((Path(__file__).resolve().parent.parent / "examples"
+                      / "sir.json").read_text())
+    raw.update(smc_iterations=6, num_samples=1 << 14, database_filename="",
+               device_dispatch="fused")
+    a = AbcSmc(raw, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU]) as prof, \
+            redirect_stderr(io.StringIO()):
+        a.run_device(seed=2)
+    ranges = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.name().startswith("abcsmc.")]
+    names = [n for n, _, _ in ranges]
+    assert names.count("abcsmc.capture") == 1
+    assert names.count("abcsmc.replay") == 4
+    steps = [(x, y) for n, x, y in ranges if n == "abcsmc.step"]
+    for n, x, y in ranges:
+        if n == "abcsmc.replay":
+            assert any(x <= u and v <= y for u, v in steps)
+    ph = [e for e in a.timings if e["op"] == "run_device_phases"][0]
+    assert (ph["route"], ph["graph_captures"], ph["graph_replays"]) == (
+        "scan", 1, 4)
+    assert 0 < ph["capture_s"] < ph["dispatch_s"]
+    assert 0 < ph["replay_s"] < ph["dispatch_s"]
+    gens = [e for e in a.timings if e["op"] == "device_generation"]
+    assert [e["route"] for e in gens] == ["eager"] * 2 + ["replay"] * 4
+    assert [e["sim_steps"] for e in gens] == [160.0] * 6
+    assert [e["mvn_ms"] is None for e in gens] == [False] * 2 + [True] * 4
+    assert all(e["mvn_ms"] > 0 for e in gens[:2])
+    assert all(np.isfinite(e["mvn_factor"]).all() for e in gens[:5])
+
+
 def test_surfaces_on_cuda(cuda, tmp_path):
     from abcsmc_tpu_torch import crc32
 

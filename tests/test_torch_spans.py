@@ -7,16 +7,20 @@ accounting. The CUDA side (stage events, replays, the C entry's count) is
 held on the card in tests/test_torch_gpu.py."""
 
 import io
+import json
 from contextlib import redirect_stderr
+from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 from torch.profiler import ProfilerActivity, profile
 
 from abcsmc_tpu_torch import AbcSmc, spans
 from abcsmc_tpu_torch.models.simulators import make_linear_gaussian_simulator
 from abcsmc_tpu_torch.ops import _build, kernels
 
+ROOT = Path(__file__).resolve().parent.parent
 NPAR, NMET, N, KEEP, SETS = 3, 5, 400, 40, 3
 MIX = np.random.default_rng(11).normal(size=(NPAR, NMET))
 OBS = np.array([0.3, 0.7, 0.5]) @ MIX
@@ -24,8 +28,10 @@ OBS = np.array([0.3, 0.7, 0.5]) @ MIX
 HOST = ["abcsmc.dispatch", "abcsmc.mirror", "abcsmc.fetch",
         "abcsmc.store.insert_generation_complete",
         "abcsmc.report.filtering", "abcsmc.report.convergence"]
+#: the stages of an INDEPENDENT fit's step: every stage but ``mvn``
+INDEPENDENT_STAGES = [s for s in spans.STAGES if s != "mvn"]
 STEP = ["abcsmc.step", "abcsmc.step.simulate"] + [
-    f"abcsmc.step.{s}" for s in spans.STAGES]
+    f"abcsmc.step.{s}" for s in INDEPENDENT_STAGES]
 
 
 def _raw(db="", **extra):
@@ -47,8 +53,8 @@ def _engine(raw):
         NPAR, NMET, mix=MIX))
 
 
-def _traced_fit(raw, **kw):
-    a = _engine(raw)
+def _traced_fit(raw, own_simulator=False, **kw):
+    a = AbcSmc(raw, device="cpu") if own_simulator else _engine(raw)
     with profile(activities=[ProfilerActivity.CPU]) as prof, \
             redirect_stderr(io.StringIO()):
         a.run_device(seed=4, **kw)
@@ -90,8 +96,9 @@ def test_a_fit_names_every_span(store, row_block, tmp_path):
     assert count["abcsmc.store.insert_generation_complete"] == SETS
     assert count["abcsmc.report.filtering"] == SETS
     assert count["abcsmc.step.propose"] == SETS - 1   # the last set: none
-    for s in spans.STAGES:
+    for s in INDEPENDENT_STAGES:
         assert count[f"abcsmc.step.{s}"] <= SETS
+    assert "abcsmc.step.mvn" not in names
     # a stage's parent is its set's step, a set's the run's phase
     for s in ["simulate", *spans.STAGES]:
         assert _within(ranges, f"abcsmc.step.{s}", "abcsmc.step")
@@ -105,7 +112,7 @@ def test_a_fit_names_every_span(store, row_block, tmp_path):
                     if n.startswith("abcsmc.step.")
                     and n != "abcsmc.step.simulate")
     assert [n for _, n in starts[:5]] == [
-        f"abcsmc.step.{s}" for s in spans.STAGES]
+        f"abcsmc.step.{s}" for s in INDEPENDENT_STAGES]
     if store == "sqlite":
         a.storage.close()
 
@@ -228,3 +235,76 @@ def test_launch_counter_counts_replays_not_captures(monkeypatch):
     # eager launches after it still count as the C entry counts them
     c_count[0] += 2
     assert kernels.kernel_launches() == before + 11
+
+
+def _sir_raw(noise, **extra):
+    """A small fit of the builtin chain-binomial ``sir`` (160 daily steps),
+    its observed row the shipped example's."""
+    raw = json.loads((ROOT / "examples" / "sir.json").read_text())
+    raw.update(smc_iterations=SETS, num_samples=N, database_filename="",
+               noise=noise, **extra)
+    raw.pop("predictive_prior_fraction")
+    raw["predictive_prior_size"] = KEEP
+    return raw
+
+
+@pytest.mark.parametrize("dispatch", ["sequential", "fused"])
+@pytest.mark.parametrize("sim", ["sir", "linear_gaussian"])
+def test_time_loop_steps_are_counted_per_set(sim, dispatch):
+    """``sim_steps``: the simulator's time steps a row, in every set's
+    entry (the builtin ``sir`` runs 160); None for a simulator without a
+    time loop. The CPU runs the fused route eagerly: no capture, no
+    replay, and no replay seconds."""
+    if sim == "sir":
+        a = AbcSmc(_sir_raw("INDEPENDENT", device_dispatch=dispatch),
+                   device="cpu")
+    else:
+        a = _engine(_raw(device_dispatch=dispatch))
+    with redirect_stderr(io.StringIO()):
+        a.run_device(seed=4)
+    gens = [e for e in a.timings if e["op"] == "device_generation"]
+    want = 160.0 if sim == "sir" else None
+    assert [e["sim_steps"] for e in gens] == [want] * SETS
+    assert a.simulator.row_steps == (None if want is None
+                                     else 160 * N * SETS)
+    ph = _phases(a)
+    assert (ph["graph_captures"], ph["graph_replays"]) == (0, 0)
+    assert ph["capture_s"] == ph["replay_s"] == 0.0
+
+
+@pytest.mark.parametrize("noise", ["MULTIVARIATE", "INDEPENDENT"])
+def test_multivariate_sets_run_the_mvn_stage(noise):
+    """A MULTIVARIATE set that proposes runs ``abcsmc.step.mvn`` (the
+    covariance, its doubled diagonal, the Cholesky factor and the first
+    block of rejection rounds) right after ``abcsmc.step.propose`` (the
+    resample), inside its step; its entry carries the factor, the one of
+    the stored survivors. The CPU times no stage: ``mvn_ms`` is None. An
+    INDEPENDENT fit has no such range and no factor."""
+    from abcsmc_tpu_torch.ops.resample import setup_mvn_sampler
+
+    a, ranges = _traced_fit(_sir_raw(noise), own_simulator=True)
+    count = {n: sum(1 for m, _, _ in ranges if m == n)
+             for n, _, _ in ranges}
+    gens = [e for e in a.timings if e["op"] == "device_generation"]
+    assert all(e["mvn_ms"] is None for e in gens)
+    if noise == "INDEPENDENT":
+        assert "abcsmc.step.mvn" not in count
+        assert all(e["mvn_factor"] is None for e in gens)
+        return
+    assert count["abcsmc.step.mvn"] == count["abcsmc.step.propose"] \
+        == SETS - 1
+    assert _within(ranges, "abcsmc.step.mvn", "abcsmc.step")
+    props = sorted(x for n, x, _ in ranges if n == "abcsmc.step.propose")
+    prop_ends = sorted(y for n, _, y in ranges if n == "abcsmc.step.propose")
+    mvns = sorted(x for n, x, _ in ranges if n == "abcsmc.step.mvn")
+    assert all(p <= e <= m for p, e, m in zip(props, prop_ends, mvns))
+    assert gens[-1]["mvn_factor"] is None      # the last set: no proposal
+    for g, e in zip(a.storage.read_generations(), gens[:-1]):
+        surv = np.asarray(g.posterior_ranks)
+        kept = np.argsort(np.where(surv >= 0, surv, np.iinfo(np.int64).max),
+                          kind="stable")[:KEEP]
+        want = setup_mvn_sampler(torch.as_tensor(
+            np.asarray(g.params)[kept], dtype=torch.float32))
+        got = np.asarray(e["mvn_factor"])
+        assert got.shape == (2, 2) and got[0, 1] == 0.0
+        np.testing.assert_allclose(got, want.numpy(), rtol=1e-6)
