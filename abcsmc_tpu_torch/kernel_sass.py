@@ -1,5 +1,5 @@
 """Registers, shared memory, spills and the SASS instruction mix of each
-kernel of ``csrc/mixture_logsumexp.cu``, or of an earlier source.
+kernel of every ``csrc/*.cu`` source of the port, or of the sources given.
 
     python -m abcsmc_tpu_torch.kernel_sass [--source OLD.cu ...]
         [--match ffma] [--sass-dir D] [--out F]
@@ -9,7 +9,8 @@ Builds each source with the port's nvcc flags plus ``-Xptxas -v`` into
 static shared memory, stack, spill stores and loads), disassembles the
 build with ``cuobjdump -sass`` and counts each kernel's instructions by
 class (FFMA, FADD, FMNMX, MUFU, LDS, LDG, HMMA; STL and LDL, the local
-memory a spill goes to; CALL; other), over the whole
+memory a spill or a thread's own array goes to; CALL; the FP64 pipe's
+DFMA, DMUL, DADD; other), over the whole
 kernel and over its hot loop: the loop (a backward branch and its
 target) that holds the most MUFUs, the shortest of those. In a static
 instance each logit takes one MUFU.EX2 in that loop, so the loop's counts
@@ -35,7 +36,7 @@ from pathlib import Path
 from abcsmc_tpu_torch.ops import _build
 
 CLASSES = ("FFMA", "FADD", "FMNMX", "MUFU", "LDS", "LDG", "HMMA", "STL",
-           "LDL", "CALL")
+           "LDL", "CALL", "DFMA", "DMUL", "DADD")
 _INSN = re.compile(
     r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)"
     r"([^;]*);")
@@ -170,7 +171,8 @@ def analyze(src: Path, match: str | None = None,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--source", action="append", type=Path,
-                    help="a .cu source (repeatable; default: the port's)")
+                    help="a .cu source (repeatable; default: every "
+                         "csrc/*.cu of the port)")
     ap.add_argument("--match", help="keep kernels whose name holds this")
     ap.add_argument("--out", help="also write the JSON lines to this file")
     ap.add_argument("--sass-dir", type=Path,
@@ -182,7 +184,7 @@ def main(argv=None) -> int:
         print(f"kernel_sass: {e}", file=sys.stderr)
         return 2
     rows = []
-    for src in args.source or [_build.CSRC / "mixture_logsumexp.cu"]:
+    for src in args.source or sorted(_build.CSRC.glob("*.cu")):
         for row in analyze(src, args.match, args.sass_dir):
             rows.append(row)
             print(json.dumps(row), flush=True)

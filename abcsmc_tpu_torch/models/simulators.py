@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from abcsmc_tpu_torch.errors import SimulatorError
+from abcsmc_tpu_torch.ops import sim_kernels
 from abcsmc_tpu_torch.ops.pls import _fmix32
 
 _MIX_FILE = Path(__file__).with_name("linear_gaussian_mix.npz")
@@ -562,7 +563,13 @@ def make_sir_simulator(population: int = 10_000, t_steps: int = 160,
 
     Column layout: step t reads normals 2t (new infections) and 2t + 1 (new
     recoveries). Peak, duration and the incidence moments are running
-    values; the incidence series [t_steps, N] is kept for the half-time."""
+    values; the incidence series [t_steps, N] is kept for the half-time.
+
+    Two paths, the same bits. A call of the simulator on a CUDA device
+    runs the whole loop as one hand-written kernel
+    (:func:`abcsmc_tpu_torch.ops.sim_kernels.sir_loop`, float32 or
+    float64; it raises on what it does not take). A call on the CPU, and
+    ``metrics_from_noise`` always, runs the chain of PyTorch ops below."""
 
     def core(params, noise):
         dt, dev, n = params.dtype, params.device, params.shape[0]
@@ -600,7 +607,18 @@ def make_sir_simulator(population: int = 10_000, t_steps: int = 160,
         return torch.stack([r + i, peak, peak_time, duration, mean_time,
                             half], dim=1)
 
+    def batch(params, seeds):
+        if not params.is_cuda:
+            return core(params, CounterNoise(seeds, params.dtype))
+        out = sim_kernels.sir_loop(
+            params[:, :2].contiguous(),
+            seeds.to(params.device, torch.int64).contiguous(), population,
+            t_steps, i0)
+        sim.row_steps += t_steps * params.shape[0]
+        return out
+
     sim = _family(core, nmet=6, time_loop=True)
+    sim.fn = batch
     return sim
 
 

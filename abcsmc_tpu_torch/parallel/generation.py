@@ -78,6 +78,7 @@ from abcsmc_tpu_torch.ops import pls as pls_mod
 from abcsmc_tpu_torch.ops import stats as stats_mod
 from abcsmc_tpu_torch.ops import weights as weights_mod
 from abcsmc_tpu_torch.ops.resample import _stratum_points, setup_mvn_sampler
+from abcsmc_tpu_torch.ops.sim_kernels import sir_loop
 from abcsmc_tpu_torch.parallel.mesh import (
     ParticleMesh, fetch_rows_global, single_mesh,
 )
@@ -311,7 +312,7 @@ class _CapturedStep:
     (population or, for a precomputed step, parameters and metrics;
     previous state; draws), the static result, and the kernel launches the
     graph holds (``kernels.graph_capture_counts``' "partial" and
-    "kernels")."""
+    "kernels", and "sir_loop", the ``sim_kernels.sir_loop`` launches)."""
 
     def __init__(self, graph, params, seeds, state, draws, result,
                  kernel_launches: dict, metrics=None):
@@ -1700,11 +1701,14 @@ class Generation:
         # the MULTIVARIATE count stays on the device: read after a replay.
         # The launches the capture records run at each replay, not now
         self._capturing = True
+        loops = sir_loop.launches
         try:
             with graph_capture_counts() as held, torch.cuda.graph(graph):
                 result = body()
         finally:
             self._capturing = False
+        held["sir_loop"] = sir_loop.launches - loops
+        sir_loop.launches = loops
         self.graph_captures += 1
         return graph, result, held
 
@@ -1791,6 +1795,7 @@ class Generation:
             count_launches(cap.kernel_launches["partial"],
                            self.weight_precision,
                            cap.kernel_launches["kernels"])
+            sir_loop.launches += cap.kernel_launches["sir_loop"]
             self._note_set("replay", events, cap.result)
         self.replay_seconds += time.perf_counter() - t0
         return cap.result

@@ -38,7 +38,10 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
              plan's count; tests/test_torch_gpu.py also holds them to a
              torch.profiler trace), its error against float64 on 4,096 rows ("default"
              at least 10x "high"'s at 50,000^2);
-             max abs diff <= 2e-4 nats;
+             max abs diff <= 2e-4 nats; then the sir loop's kernel
+             (csrc/sir_loop.cu) at sir_1m's 1,048,576 rows x 160 days
+             against its plain PyTorch chain on the same rows, bit for
+             bit, both timed beside the loop's least time;
 3. dengue  - examples/dengue_surrogate.json through
              AbcSmc(cfg, device="cuda").run_device(), cut to 3 sets: complete
              SQLite sets of 2,048 ranked rows, ncomp_used > 1 in each, 2
@@ -76,7 +79,9 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
              on, in-memory store: MULTIVARIATE proposal of 1M rows, Box-Cox
              over 1M x 6, the 160-step SIR loop over 1M particles, the
              kernel at 52,429^2 x 2; simulate apart from the rest of the
-             step, peak device memory, chosen lambdas, launches;
+             step, peak device memory, chosen lambdas, launches (the sir
+             loop's kernel once a set, here and wherever phases 7, 11
+             and 13 run sir: once a set and shard);
 9. projection - examples/pseudo.json as shipped through the CLI; a PSEUDO
              sweep of 320 x 320 = 102,400 dice combinations (one claim, one
              batch_fn call, writeback); a POSTERIOR replay whose source is
@@ -207,7 +212,7 @@ script's); the host phases also print the engine's timings split
 (read/rank/weight, propose, enqueue, claim, simulate, writeback). Then the
 kernel summary line: one entry per dot scheme ("high" 3xTF32, "default"
 BF16, "highest" FP32 FMA), each with its launches summed over every
-phase's main path, and, last, the device line. There is no CPU path:
+phase's main path, and the sir loop's kernel, and, last, the device line. There is no CPU path:
 without CUDA (or outside a checkout) it exits nonzero and prints no
 result.
 """
@@ -504,6 +509,63 @@ def phase_kernel():
     return errs, times, schemes
 
 
+def phase_sir_kernel():
+    """The sir loop's kernel (``sim_kernels.sir_loop``) against its plain
+    version, the simulator's PyTorch chain (``metrics_from_noise`` on the
+    seeds' counter noise), on the same rows at sir_1m's 1,048,576 rows x
+    160 days: bit for bit on all six metrics. Rows over sir_1m's prior box
+    and past it (negative rates, beta near 0, gamma over 1 and under the
+    1e-6 clamp), seeds over the whole int64 range. Both timed (CUDA
+    events) beside the loop's least time (``port_bench/kernels/
+    sir_loop.py``)."""
+    import numpy as np
+    import torch
+
+    from abcsmc_tpu_torch.models.simulators import (
+        CounterNoise, make_sir_simulator,
+    )
+    from abcsmc_tpu_torch.ops.sim_kernels import sir_loop
+    from port_bench.kernels import sir_loop as roofline
+
+    n, (pop, days, i0) = SIR_1M[0], (10_000, 160, 10)
+    rng = np.random.default_rng(17)
+    beta = np.where(rng.random(n) < 0.75, rng.uniform(0.05, 1.0, n),
+                    rng.uniform(-1.5, 3.0, n))
+    gamma = np.where(rng.random(n) < 0.75, rng.uniform(0.02, 0.5, n),
+                     rng.uniform(-1.0, 1.5, n))
+    beta[:n // 16] = rng.uniform(-1e-6, 1e-6, n // 16)
+    gamma[n // 16:n // 8] = rng.uniform(-2e-6, 2e-6, n // 16)
+    params = torch.as_tensor(np.stack([beta, gamma], 1), dtype=torch.float32,
+                             device="cuda")
+    seeds = torch.as_tensor(rng.integers(-2**63, 2**63 - 1, n,
+                                         dtype=np.int64), device="cuda")
+    sim = make_sir_simulator(pop, days, i0)
+
+    def kernel():
+        return sir_loop(params, seeds, pop, days, i0)
+
+    def plain():
+        return sim.metrics_from_noise(
+            params, CounterNoise(seeds, torch.float32))
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    err = float(torch.nan_to_num((got - want).abs(), nan=math.inf).max())
+    check(same, f"sir loop kernel at {n} x {days}: not the chain's bits, "
+          f"max abs err {err}")
+    check(float((got[:, 0] > 10 * i0).float().mean()) > 0.25,
+          "sir loop kernel: too few rows take off")
+    out = {"shape": [n, days], "max_abs_err": err,
+           "ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 3),
+           "bound_ms": roofline.least_ms(days, n),
+           "bound_terms_ms": roofline.terms_ms(days, n)}
+    out["bound_by"] = max(out["bound_terms_ms"],
+                          key=out["bound_terms_ms"].get)
+    emit({"phase": "sir_kernel", **out})
+    return out
+
+
 def phase_kernel_schemes(errs):
     """Every dot scheme at SCHEME_SHAPES and at the shipped keeps
     (``keep_shapes``; folded up to 512 centers) in each mode against its
@@ -766,12 +828,33 @@ def set_inputs(run, t):
 
 
 def reset_launches():
-    """Every launch count to 0 (the total and each scheme's)."""
+    """Every launch count to 0 (the total and each scheme's, and the sir
+    loop kernel's)."""
     from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
+    from abcsmc_tpu_torch.ops.sim_kernels import sir_loop
 
     mixture_logsumexp.launches = 0
     for k in PRECISIONS:
         mixture_logsumexp.launches_by_precision[k] = 0
+    sir_loop.launches = 0
+
+
+#: the sir loop kernel's launches over every phase's main path
+SIR_LAUNCHES = {"main_path": 0}
+
+
+def check_sir_launches(what, want):
+    """The sir loop kernel's launches since the last
+    :func:`reset_launches` against ``want`` (one a set and shard: a set
+    simulates each shard's rows in one call at these sizes, and a replayed
+    set counts the launch its graph holds); added to the main path's
+    count."""
+    from abcsmc_tpu_torch.ops.sim_kernels import sir_loop
+
+    got = sir_loop.launches
+    check(got == want, f"{what}: sir loop kernel launches {got}, want {want}")
+    SIR_LAUNCHES["main_path"] += got
+    return got
 
 
 def read_launches():
@@ -1119,6 +1202,8 @@ def phase_examples():
         by = read_launches()
         launches = sum(by.values())
         total = add_launches(total, by)
+        sir_launches = check_sir_launches(
+            name, n_sets if cfg.get("simulator") == "sir" else 0)
         run.storage.close()
         rows = store_rows(db)
         sizes = [run.config.smc_size_at(t) for t in range(n_sets)]
@@ -1136,7 +1221,7 @@ def phase_examples():
         report = fit_report(run, cfg, truth, must_beat)
         emit({"phase": "examples", "example": name, "noise": cfg["noise"],
               "sizes": sizes[:2], "sets": n_sets, "wall_s": wall,
-              "launches": launches,
+              "launches": launches, "sir_loop_launches": sir_launches,
               "replay_other_batch_max_rel_diff":
                   replay_diff(run, max(sizes), replay_tol),
               **report})
@@ -1169,12 +1254,14 @@ def phase_sir_1m():
     check([(g.size, len(g.predictive_prior_indices())) for g in stored]
           == [(n, keep)] * n_sets, "sir_1m store sets")
     check(launches == 2 * (n_sets - 1), f"sir_1m kernel launches {launches}")
+    sir_launches = check_sir_launches("sir_1m", n_sets)
     report = fit_report(run, cfg, *EXAMPLES["sir"][:2])
     gens = [e for e in run.timings if e["op"] == "device_generation"]
     lambdas = [e["box_cox_lambdas"] for e in gens]
     check(all(len(lam) == 6 for lam in lambdas), "sir_1m lambdas")
     emit({"phase": "sir_1m", "n": n, "keep": keep, "sets": n_sets,
           "wall_s": wall, "launches": launches,
+          "sir_loop_launches": sir_launches,
           "rest_of_step_ms": [ms - sim for ms, sim in
                               zip(report["set_ms"], report["simulate_ms"])],
           "peak_memory_bytes": peak, "box_cox_lambdas": lambdas, **report})
@@ -1819,8 +1906,11 @@ def fused_mvn(kernel_errs):
     for name in MVN_FUSED:
         cfg = json.loads((REPO / "examples" / f"{name}.json").read_text())
         n_sets = cfg["smc_iterations"]
+        sir = n_sets if cfg["simulator"] == "sir" else 0
         seq, wall_seq, by_seq, _ = routed_run(cfg, "sequential")
+        sir_launches = [check_sir_launches(f"{name} sequential", sir)]
         fused, wall_fused, by_fused, said = routed_run(cfg, "fused")
+        sir_launches.append(check_sir_launches(f"{name} fused", sir))
         total = add_launches(total, by_seq, by_fused)
         l_seq, l_fused = sum(by_seq.values()), sum(by_fused.values())
         diff = stored_diff(seq, fused)
@@ -1838,6 +1928,8 @@ def fused_mvn(kernel_errs):
               "sets": n_sets, "fused_vs_sequential_max_abs_diff": diff,
               "wall_s": {"sequential": wall_seq, "fused": wall_fused},
               "launches": {"sequential": l_seq, "fused": l_fused},
+              "sir_loop_launches": dict(zip(("sequential", "fused"),
+                                            sir_launches)),
               "set_ms": {"sequential": set_ms_by_route(rep_seq)["eager"],
                          "fused": set_ms_by_route(rep)},
               "mvn_rounds": rep["mvn_rounds"],
@@ -2186,9 +2278,12 @@ def mesh_fits():
         sets = cfg["smc_iterations"]
         check(n_launch == 2 * k * (sets - 1),
               f"{name} mesh launches {n_launch}")
+        sir_launches = check_sir_launches(
+            f"{name} mesh", k * sets if cfg["simulator"] == "sir" else 0)
         rep = fit_report(run, cfg, *EXAMPLES[name][:2])
         check(max(rep["mvn_rounds"][:-1]) >= 1, f"{name} mesh mvn rounds")
         out[name] = {"wall_s": wall, "launches": n_launch,
+                     "sir_loop_launches": sir_launches,
                      "kernel_shapes": sorted(shapes),
                      "mvn_rounds": rep["mvn_rounds"], "ncomp": rep["ncomp"],
                      "routes": rep["routes"], "set_ms": rep["set_ms"],
@@ -2805,6 +2900,7 @@ def main() -> int:
         return not only or name in only
 
     errs, times, schemes = phase_kernel()
+    sir_kernel = phase_sir_kernel()
     main_path = dict.fromkeys(PRECISIONS, 0)
     walls = {}
 
@@ -2847,7 +2943,8 @@ def main() -> int:
         walls["surfaces"] = time.perf_counter() - t0
     walls["script"] = time.perf_counter() - T_START
     emit({"phase": "walls", "seconds": walls,
-          "main_path_launches": main_path})
+          "main_path_launches": main_path,
+          "sir_loop_main_path_launches": SIR_LAUNCHES["main_path"]})
     n, m, p = REPORT_SHAPE
     big = f"{n}x{m}x{p}"
     bound = kernel_bound_ms(n, m, p)
@@ -2914,6 +3011,23 @@ def main() -> int:
             "max_abs_err_f64_sampled": row["max_abs_err_f64_sampled"],
             "by_shape": drop_issue_floor(schemes[prec]),
         })
+    entries.append({
+        "name": "sir_loop_kernel",
+        "route": "cuda",
+        "source": "abcsmc_tpu_torch/csrc/sir_loop.cu",
+        "replaces": None,
+        "precision": "float32",
+        "launches": SIR_LAUNCHES["main_path"],
+        "max_abs_err": sir_kernel["max_abs_err"],
+        "ms": sir_kernel["ms"],
+        "plain_ms": sir_kernel["plain_ms"],
+        "bound_ms": sir_kernel["bound_ms"],
+        "bound_by": sir_kernel["bound_by"],
+        "bound_share": sir_kernel["bound_ms"] / sir_kernel["ms"],
+        "library_ms": None,
+        "shape": sir_kernel["shape"],
+        "bound_terms_ms": sir_kernel["bound_terms_ms"],
+    })
     for e in entries:
         check(e["launches"] > 0 or only,
               f"{e['name']}: no main-path launch in this run")

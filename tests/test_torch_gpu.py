@@ -745,6 +745,136 @@ def test_family_simulator_cuda_float32_agrees_with_cpu_float64(cuda, name):
         np.testing.assert_array_equal(part, gpu[:k])
 
 
+# ------------------------------------------------- the sir loop's kernel
+SIR_ROWS = 1 << 20
+
+
+def _sir_inputs(n, dev, seed, dtype=torch.float32):
+    """params [n, 2] across and beyond ``sir_1m``'s prior box (beta in
+    [0.05, 1], gamma in [0.02, 0.5]): negative values, beta near 0 and
+    large, gamma over 1 and under the 1e-6 clamp; seeds over the whole
+    int64 range (the hash reads their low 32 bits) and the production
+    range [0, 2^31 - 1)."""
+    rng = np.random.default_rng(seed)
+    beta = rng.uniform(-1.5, 3.0, n)
+    gamma = rng.uniform(-1.0, 1.5, n)
+    k = n // 8
+    beta[:k] = rng.uniform(-1e-6, 1e-6, k)
+    gamma[k:2 * k] = rng.uniform(-2e-6, 2e-6, k)
+    beta[2 * k:3 * k] = rng.uniform(5.0, 60.0, k)
+    gamma[3 * k:4 * k] = rng.uniform(1.0, 4.0, k)
+    box = slice(4 * k, 6 * k)
+    beta[box] = rng.uniform(0.05, 1.0, 2 * k)
+    gamma[box] = rng.uniform(0.02, 0.5, 2 * k)
+    seeds = rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64)
+    seeds[::2] = rng.integers(0, 2**31 - 1, (n + 1) // 2)
+    return (torch.as_tensor(np.stack([beta, gamma], 1), dtype=dtype,
+                            device=dev),
+            torch.as_tensor(seeds, device=dev))
+
+
+def _sir_chain(sim, params, seeds):
+    from abcsmc_tpu_torch.models.simulators import CounterNoise
+
+    return sim.metrics_from_noise(params, CounterNoise(seeds, params.dtype))
+
+
+@pytest.mark.parametrize("population,t_steps,i0,dtype",
+                         [(10_000, 160, 10, torch.float32),
+                          (100_000, 37, 1, torch.float32),
+                          (2**25 + 7, 300, 3, torch.float32),
+                          (10_000, 160, 10, torch.float64),
+                          (2**25 + 7, 300, 3, torch.float64)])
+def test_sir_kernel_bits_equal_the_chain(cuda, population, t_steps, i0,
+                                         dtype):
+    """The hand kernel against the PyTorch chain it replaces
+    (``metrics_from_noise`` with the seeds' counter noise), 1,048,576 rows
+    at the published settings, a larger population over a shorter loop,
+    and a population over 2^24 over more days than 32 chunks of one day
+    hold; in float32 and float64: all six metrics to the bit, one launch a
+    call."""
+    from abcsmc_tpu_torch.models.simulators import make_sir_simulator
+    from abcsmc_tpu_torch.ops.sim_kernels import sir_loop
+
+    sim = make_sir_simulator(population, t_steps, i0)
+    params, seeds = _sir_inputs(SIR_ROWS, cuda, 20 + t_steps, dtype)
+    launches = sir_loop.launches
+    got = sim.batch_fn(params, seeds)
+    want = _sir_chain(sim, params, seeds)
+    assert sir_loop.launches == launches + 1
+    assert sim.row_steps == 2 * t_steps * SIR_ROWS
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (SIR_ROWS, 6)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    for j in range(6):
+        np.testing.assert_array_equal(got[:, j], want[:, j], err_msg=str(j))
+    # enough rows take off to reach every branch of the loop
+    assert (got[:, 0] > 10 * i0).mean() > 0.25
+    assert (got[:, 5] > 0).mean() > 0.25
+
+
+def test_sir_kernel_replayed_in_a_graph_equals_the_chain(cuda):
+    """The kernel recorded into a CUDA graph (a static [N, 6] output in
+    the graph's pool) and replayed twice with new rows copied in: each
+    replay's metrics equal the chain's on those rows to the bit."""
+    from abcsmc_tpu_torch.models.simulators import make_sir_simulator
+
+    sim = make_sir_simulator()
+    params, seeds = _sir_inputs(SIR_ROWS, cuda, 1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sim.batch_fn(params, seeds)          # the build and load
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sim.batch_fn(params, seeds)
+    for seed in (2, 3):
+        p, s = _sir_inputs(SIR_ROWS, cuda, seed)
+        params.copy_(p)
+        seeds.copy_(s)
+        graph.replay()
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(out.cpu().numpy(),
+                                      _sir_chain(sim, p, s).cpu().numpy())
+
+
+def test_sir_kernel_counts_and_dispatch(cuda):
+    """One call adds ``t_steps * n`` to ``row_steps`` and one to the
+    kernel's launches and makes no host sync; ``run_batch`` on the card
+    takes the kernel in float32 and in float64 (the chain's bits in each),
+    ``metrics_from_noise`` never reaches it, and a dtype it does not take
+    raises."""
+    from abcsmc_tpu_torch.models.simulators import make_sir_simulator
+    from abcsmc_tpu_torch.ops.sim_kernels import sir_loop
+
+    sim = make_sir_simulator()
+    n = 4099
+    params, seeds = _sir_inputs(n, cuda, 4)
+    sim.batch_fn(params[:8], seeds[:8])       # the build and load
+    sim.row_steps = sir_loop.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sim.batch_fn(params, seeds)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (sim.row_steps, sir_loop.launches) == (160 * n, 1)
+    p64, s64 = params.double().cpu().numpy(), seeds.cpu().numpy()
+    for k, dtype in enumerate((torch.float32, torch.float64), start=2):
+        got = sim.run_batch(p64, s64, np.arange(n), device=cuda,
+                            dtype=dtype)
+        want = _sir_chain(sim, torch.as_tensor(p64, dtype=dtype,
+                                               device=cuda), seeds)
+        np.testing.assert_array_equal(
+            got, want.cpu().double().numpy())
+        assert sir_loop.launches == k
+    assert sim.row_steps == 5 * 160 * n
+    with pytest.raises(TypeError, match="float32 or float64"):
+        sim.batch_fn(params.half(), seeds)
+    assert sir_loop.launches == 3
+
+
 def test_generation_step_mvn_box_cox_cuda_matches_cpu(cuda):
     """The float32 step with MULTIVARIATE noise and Box-Cox on the card and
     on the CPU, same data and draws: lambdas within one grid step, nearly
@@ -1101,18 +1231,21 @@ def test_fused_mvn_time_loop_captures_once_and_replays(cuda):
     ``abcsmc.capture`` range, each later set an ``abcsmc.replay`` range
     around its ``abcsmc.step``, their host seconds in ``capture_s`` and
     ``replay_s``. Every set reads the loop's 160 steps a row (a replay the
-    captured step's); the eager sets time the ``mvn`` stage, the replays
-    none."""
+    captured step's) and runs the loop's kernel once; the eager sets time
+    the ``mvn`` stage, the replays none."""
     import json
     from pathlib import Path
 
     from torch.profiler import ProfilerActivity, profile
+
+    from abcsmc_tpu_torch.ops.sim_kernels import sir_loop
 
     raw = json.loads((Path(__file__).resolve().parent.parent / "examples"
                       / "sir.json").read_text())
     raw.update(smc_iterations=6, num_samples=1 << 14, database_filename="",
                device_dispatch="fused")
     a = AbcSmc(raw, device="cuda")
+    sir_loop.launches = 0
     with profile(activities=[ProfilerActivity.CPU]) as prof, \
             redirect_stderr(io.StringIO()):
         a.run_device(seed=2)
@@ -1134,6 +1267,8 @@ def test_fused_mvn_time_loop_captures_once_and_replays(cuda):
     gens = [e for e in a.timings if e["op"] == "device_generation"]
     assert [e["route"] for e in gens] == ["eager"] * 2 + ["replay"] * 4
     assert [e["sim_steps"] for e in gens] == [160.0] * 6
+    # the hand kernel ran once a set, a replay's as captured
+    assert sir_loop.launches == 6
     assert [e["mvn_ms"] is None for e in gens] == [False] * 2 + [True] * 4
     assert all(e["mvn_ms"] > 0 for e in gens[:2])
     assert all(np.isfinite(e["mvn_factor"]).all() for e in gens[:5])
