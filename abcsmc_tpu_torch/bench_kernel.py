@@ -160,8 +160,8 @@ def kernel_us(fn, calls: int = 10) -> dict:
         if "prologue_kernel" in ev.key:
             name = "prologue"
         elif "partial_kernel" in ev.key:
-            # the template's ONLINE argument: <SCHEME, KS, ONLINE, ...> for
-            # the mma kernel, <KS, ONLINE, ...> for the FFMA kernel
+            # the template's ONLINE argument: <SCHEME, KS, ONLINE> for the
+            # mma kernel, <KS, ONLINE> for the FFMA kernel
             args = ev.key.split("partial_kernel<")[1].split(">")[0]
             online = args.split(",")[2 if "mixture" in ev.key else 1]
             name = "online" if "true" in online else "static"

@@ -73,37 +73,11 @@
 // One call is two launches (three in AUTO): the prologue (the -1e30 clamp,
 // per-block maxima of the live log-weights, b_aug; the clamp and the max_lw
 // rule are the TPU wrapper's, pallas_kernels.py:209-215) and the partial
-// kernel(s), unless it is folded. The prologue builds b_aug a stage at a
-// time, one float4 (HIGH), uint2 (BF16) or column slot (FFMA) a thread
-// (build_stage), so its stores coalesce; a block takes spb stages (the
-// plan's prologue_blocks: 4 from 16,385 centers, 1 below, where a call is
-// short and the prologue's parallelism is what its time is).
-//
-// The folded call. At the survivor keeps of up to 512 centers (8 stages)
-// a call's work is a few microseconds, and the prologue's launch and its
-// round trip of b_aug through global memory cost as much as the logits.
-// So there the plan (ops/kernels.py::launch_plan) asks for no prologue,
-// and each pass is one launch of a FOLD instance of the partial kernel:
-// - the n_split <= 8 splits of a query block are one thread-block
-//   cluster (1, n_split, 1);
-// - each block cp.asyncs its stages' raw b rows and log-weights (two
-//   buffers, 4-byte copies, any alignment) and builds each stage in
-//   shared memory with build_stage, the prologue's values bit for bit;
-// - max_lw stays the global max of the live weights: each block takes
-//   the max over its own split, and reads the others' over distributed
-//   shared memory after a cluster barrier (fold_max_lw);
-// - the partials stay in shared memory; after a cluster barrier each
-//   block merges its share of the query block's rows from all the
-//   cluster's blocks, in split order, merge_splits' arithmetic
-//   (fold_merge). No arrival counter, so nothing to zero: a call is the
-//   same eagerly, inside a captured graph, in a graph replayed many
-//   times and on two streams at once;
-// - AUTO's static pass writes one flag a (query block, split), 0 or 1,
-//   every one of them; the online pass reads them all and returns at
-//   once if none is set. Two launches, no reset, no host sync.
-// With the same split a folded call gives the unfolded call's bits. Past
-// 8 stages a block rebuilds every stage its split holds for each query
-// block, and the shared prologue is the cheaper way (PERF.md).
+// kernel(s). The prologue builds b_aug a stage at a time, one float4
+// (HIGH), uint2 (BF16) or column slot (FFMA) a thread (build_stage), so
+// its stores coalesce; a block takes spb stages (the plan's
+// prologue_blocks: 4 from 16,385 centers, 1 below, where a call is short
+// and the prologue's parallelism is what its time is).
 //
 // The FFMA program. Its dot is p+2 FP32 operations a logit against the
 // SFU's one ex2: at 128 FP32 operations and 16 ex2 per SM and clock the
@@ -141,7 +115,6 @@
 // in registers, interleaved one row half's ex2s with the other half's
 // FFMAs, or ran 8 x 4 tiles at higher occupancy were all slower.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -151,8 +124,6 @@
 #include <type_traits>
 
 namespace {
-
-namespace coop = cooperative_groups;
 
 constexpr int kThreads = 128;      // 4 warps
 constexpr int kMT = 2;             // m16 tiles per warp: 32 query rows
@@ -172,10 +143,6 @@ constexpr float kTau = 8.f;        // lazy-max slack, log2 units
 // rather than 126, which is past the 2^-149 floor of an FP32 exp.
 constexpr float kHeadroom = 64.f;
 constexpr unsigned kFull = 0xffffffffu;
-// folded form: splits (blocks) a cluster, the portable maximum. The
-// launch plan (ops/kernels.py) reads this line and max_reg_ks's return
-// line from this file, its only source of the folded form's limits.
-constexpr int kMaxCluster = 8;
 
 enum Scheme { kHigh = 0, kBf16 = 1, kFfma = 2 };
 
@@ -193,21 +160,6 @@ __host__ __device__ constexpr int max_reg_ks(int scheme) {
 // from the launch plan (ops/kernels.py); a larger one is refused.
 __host__ __device__ constexpr int stage_capacity_f4(int scheme, int ks) {
   return kStageTiles * ks * (scheme == kHigh ? 32 : 16);
-}
-
-// The folded form (see "The folded call" above): the largest p whose
-// stage an instance of KS builds (HIGH, BF16: b's p columns, 1 and cb in
-// KS k-steps of 8 or 16; FFMA: p + 1 rows in KS groups of 8), and the
-// floats of one raw stage in shared memory: 64 log-weights, then 64 rows
-// of b at an odd stride (p | 1), so that 32 lanes reading one column of
-// 32 centers hit 32 banks.
-__host__ __device__ constexpr int fold_max_p(int scheme, int ks) {
-  return scheme == kHigh ? 8 * ks - 2 : scheme == kBf16 ? 16 * ks - 2
-                                                        : 8 * ks - 1;
-}
-
-__host__ __device__ constexpr int raw_floats(int scheme, int ks) {
-  return kStageCenters * (1 + (fold_max_p(scheme, ks) | 1));
 }
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
@@ -307,11 +259,6 @@ struct PartialArgs {
   int* flag_out;       // static pass of auto: set to 1 on a non-finite row
   const int* gate;     // online pass of auto: return at once if *gate == 0
   float* out;          // [n]
-  // the folded form only (see "The folded call")
-  const float* b;      // [m, p], the centers
-  const float* log_w;  // [m]
-  int m;
-  int n_gate;          // online pass of auto: gate[0 .. n_gate) all 0 -> return
 };
 
 // max_lw: the largest live log-weight, 0 when there is none (warp 0 of the
@@ -325,35 +272,6 @@ __device__ __forceinline__ void block_max_lw(const PartialArgs& A, int lane,
   if (lane == 0) *dst = isfinite(mx) ? mx : 0.f;
 }
 
-// The folded form's pieces (see "The folded call").
-
-// 4-byte cp.async; a source past the end (valid false) fills a 0.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-// Stage st's raw inputs into raw (raw_floats layout): log_w, then b's 64
-// rows at stride p | 1; centers past m are 0 (build_* treats them as dead
-// by their index). One commit group.
-__device__ __forceinline__ void issue_raw(const PartialArgs& A, int st,
-                                          float* raw) {
-  const int j0 = st * kStageCenters, p = A.p, rs = p | 1;
-  const int tid = threadIdx.x;
-  if (tid < kStageCenters) {
-    const bool ok = j0 + tid < A.m;
-    cp_async4(raw + tid, A.log_w + (ok ? j0 + tid : 0), ok);
-  }
-  const int c = tid >> 1;   // two threads a center
-  const bool ok = j0 + c < A.m;
-  const float* src = A.b + (ok ? (size_t)(j0 + c) * p : 0);
-  for (int k = tid & 1; k < p; k += 2)
-    cp_async4(raw + kStageCenters + c * rs + k, src + (ok ? k : 0), ok);
-  asm volatile("cp.async.commit_group;");
-}
-
 // sum_k b_k^2 of a center's row in column order
 __device__ __forceinline__ float row_bsq(const float* bc, int p) {
   float bsq = 0.f;
@@ -361,36 +279,13 @@ __device__ __forceinline__ float row_bsq(const float* bc, int p) {
   return bsq;
 }
 
-// Where a stage's inputs come from: the raw stage in shared memory (the
-// folded call: log_w, then b's rows at stride p | 1) or b and log_w in
-// global memory (the prologue). lw(c) and row(c) are read only for a
-// center c < m (row: only for a live one).
-struct RawStage {
-  const float* raw;
-  int rs;
-  __device__ float lw(int c) const { return raw[c]; }
-  __device__ const float* row(int c) const {
-    return raw + kStageCenters + c * rs;
-  }
-};
-
-struct GlobalStage {
-  const float* b;
-  const float* log_w;
-  int j0, p;
-  __device__ float lw(int c) const { return log_w[j0 + c]; }
-  __device__ const float* row(int c) const {
-    return b + (size_t)(j0 + c) * p;
-  }
-};
-
-// One stage of b_aug (centers j0 .. j0 + 63), in the scheme's order, one
-// float4 (HIGH), uint2 (BF16) or column slot (FFMA) a thread at a time
-// (threads tid of nthreads): the prologue's, into global memory, and the
-// folded call's, into shared memory, the same values. Dead centers
-// (sentinel weight or padding) are all zero but for the weight column,
-// which holds the sentinel (exact in TF32 and bf16), so their logit is
-// exactly that sentinel and its exponential exactly 0.
+// One stage of b_aug (centers j0 .. j0 + 63) into global memory, in the
+// scheme's order, one float4 (HIGH), uint2 (BF16) or column slot (FFMA) a
+// thread at a time (threads tid of nthreads). Dead centers (sentinel
+// weight or padding) are all zero but for the weight column, which holds
+// the sentinel (exact in TF32 and bf16), so their logit is exactly that
+// sentinel and its exponential exactly 0. log_w is read only for a
+// center below m, its row of b only for a live one.
 // - HIGH: mma B-fragment order: for n8 tile nt and k-step s, lane
 //   (g = center % 8, t) holds float4 {b0 hi, b1 hi, b0 lo, b1 lo} with
 //   b0 = B[k = 8s + t][g] and b1 = B[k = 8s + t + 4][g]; log2 units.
@@ -403,12 +298,14 @@ struct GlobalStage {
 //   FP32 sentinel log2(e) x -1e30.
 // Stage st (centers 64 st ..) starts stage_f4 float4s after stage st - 1;
 // the orders above are those within a stage (nt: the n8 tile in it).
-template <int SCHEME, typename Src>
-__device__ __forceinline__ void build_stage(float4* stage, const Src& src,
-                                            int j0, int m, int p, int ks,
-                                            int tid, int nthreads) {
+template <int SCHEME>
+__device__ __forceinline__ void build_stage(float4* stage, const float* b,
+                                            const float* log_w, int j0,
+                                            int m, int p, int ks, int tid,
+                                            int nthreads) {
+  auto row = [&](int c) { return b + (size_t)(j0 + c) * p; };
   auto clamped_lw = [&](int c) {
-    return j0 + c < m ? fmaxf(src.lw(c), kNegInf) : kNegInf;
+    return j0 + c < m ? fmaxf(log_w[j0 + c], kNegInf) : kNegInf;
   };
   if constexpr (SCHEME == kHigh) {
     const float sentinel = __uint_as_float(to_tf32(kNegInf * kLog2e));
@@ -426,11 +323,11 @@ __device__ __forceinline__ void build_stage(float4* stage, const Src& src,
         if (!live) {
           v = k == p + 1 ? sentinel : 0.f;
         } else if (k < p) {
-          v = kLog2e * src.row(c)[k];
+          v = kLog2e * row(c)[k];
         } else if (k == p) {
           v = 1.f;
         } else {
-          v = k == p + 1 ? kLog2e * fmaf(-0.5f, row_bsq(src.row(c), p), lw)
+          v = k == p + 1 ? kLog2e * fmaf(-0.5f, row_bsq(row(c), p), lw)
                          : 0.f;
         }
         split_tf32(v, hi[h], lo[h]);
@@ -453,7 +350,7 @@ __device__ __forceinline__ void build_stage(float4* stage, const Src& src,
         if (k == p + 1) {
           double bsq = 0.0;
           if (live) {
-            const float* bc = src.row(c);
+            const float* bc = row(c);
             for (int cc = 0; cc < p; ++cc) {
               const double x = bc[cc];
               bsq = fma(x, x, bsq);
@@ -461,7 +358,7 @@ __device__ __forceinline__ void build_stage(float4* stage, const Src& src,
           }
           v[i] = live ? fmaf(-0.5f, (float)bsq, lw) : kNegInf;
         } else if (live && k < p) {
-          v[i] = src.row(c)[k];
+          v[i] = row(c)[k];
         } else {
           v[i] = live && k == p ? 1.f : 0.f;
         }
@@ -473,13 +370,13 @@ __device__ __forceinline__ void build_stage(float4* stage, const Src& src,
     for (int i = tid; i < p * kStageCenters; i += nthreads) {
       const int k = i >> 6, c = i & (kStageCenters - 1);
       const bool live = clamped_lw(c) > 0.5f * kNegInf;
-      col[i] = live ? kLog2e * src.row(c)[k] : 0.f;
+      col[i] = live ? kLog2e * row(c)[k] : 0.f;
     }
     for (int c = tid; c < kStageCenters; c += nthreads) {
       const float lw = clamped_lw(c);
       col[p * kStageCenters + c] =
           lw > 0.5f * kNegInf
-              ? kLog2e * fmaf(-0.5f, row_bsq(src.row(c), p), lw)
+              ? kLog2e * fmaf(-0.5f, row_bsq(row(c), p), lw)
               : kNegInf * kLog2e;
     }
   }
@@ -523,102 +420,16 @@ prologue_kernel(const float* __restrict__ b, const float* __restrict__ log_w,
        ++st) {
     float4* stage = reinterpret_cast<float4*>(bfrag) + (size_t)st * stage_f4;
     const int j0 = st * kStageCenters;
-    const GlobalStage src{b, log_w, j0, p};
     if (scheme == kHigh)
-      build_stage<kHigh>(stage, src, j0, m, p, ks, tid, kPrologueThreads);
+      build_stage<kHigh>(stage, b, log_w, j0, m, p, ks, tid,
+                         kPrologueThreads);
     else if (scheme == kBf16)
-      build_stage<kBf16>(stage, src, j0, m, p, ks, tid, kPrologueThreads);
+      build_stage<kBf16>(stage, b, log_w, j0, m, p, ks, tid,
+                         kPrologueThreads);
     else
-      build_stage<kFfma>(stage, src, j0, m, p, ks, tid, kPrologueThreads);
+      build_stage<kFfma>(stage, b, log_w, j0, m, p, ks, tid,
+                         kPrologueThreads);
   }
-}
-
-// Auto's online pass, folded: run only if the static pass flagged a row
-// in any (query block, split); every block reads the same flags.
-__device__ __forceinline__ bool fold_gate_closed(const PartialArgs& A) {
-  if (A.gate == nullptr) return false;
-  int any = 0;
-  for (int i = threadIdx.x; i < A.n_gate; i += kThreads) any |= A.gate[i];
-  return !__syncthreads_or(any);
-}
-
-// max_lw, folded: each split's block takes the max of its own centers'
-// live log-weights (the splits of a query block cover every center once),
-// then reads the others' over the cluster. The global max, as the
-// prologue and block_max_lw find it.
-__device__ __forceinline__ float fold_max_lw(const PartialArgs& A,
-                                             int st_begin, int st_end,
-                                             float* s_red) {
-  const int lo = st_begin * kStageCenters;
-  const int hi = min(A.m, st_end * kStageCenters);
-  float mx = -INFINITY;
-  for (int j = lo + threadIdx.x; j < hi; j += kThreads) {
-    const float lw = fmaxf(A.log_w[j], kNegInf);
-    if (lw > 0.5f * kNegInf) mx = fmaxf(mx, lw);
-  }
-  for (int o = 16; o > 0; o >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
-  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = mx;
-  coop::cluster_group cluster = coop::this_cluster();
-  cluster.sync();
-  // lane k of every warp reads split k's four warp maxima
-  const int lane = threadIdx.x & 31;
-  mx = -INFINITY;
-  if (lane < A.n_split) {
-    const float4 r = *reinterpret_cast<const float4*>(
-        cluster.map_shared_rank(s_red, lane));
-    mx = fmaxf(fmaxf(r.x, r.y), fmaxf(r.z, r.w));
-  }
-  for (int o = 16; o > 0; o >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
-  return isfinite(mx) ? mx : 0.f;
-}
-
-// merge_splits, folded: every split's block holds its partial (max, sum)
-// per row of the query block in shared memory (s_pmax, s_psum); after a
-// cluster barrier, split y merges rows [y * per, (y + 1) * per) of the
-// query block from all of them, in split order (merge_splits' arithmetic),
-// and auto's static pass writes flag_out[blockIdx.x * n_split + y] (0 or
-// 1: no reset needed). A second barrier keeps each block's shared memory
-// alive until the others have read it.
-template <bool ONLINE>
-__device__ __forceinline__ void fold_merge(const PartialArgs& A, float max_lw,
-                                           const float* s_pmax,
-                                           const float* s_psum) {
-  coop::cluster_group cluster = coop::this_cluster();
-  cluster.sync();
-  const int per = (kRows + A.n_split - 1) / A.n_split;
-  const int local = blockIdx.y * per + threadIdx.x;
-  const int row = blockIdx.x * kRows + local;
-  bool bad = false;
-  if (threadIdx.x < per && local < kRows && row < A.n) {
-    float ps[kMaxCluster], pm[kMaxCluster];  // all loads in flight at once
-#pragma unroll
-    for (int k = 0; k < kMaxCluster; ++k)
-      if (k < A.n_split) {
-        ps[k] = *cluster.map_shared_rank(s_psum + local, k);
-        if (ONLINE) pm[k] = *cluster.map_shared_rank(s_pmax + local, k);
-      }
-    float m = 0.f;  // STATIC: the max is the a-priori bound, 0 after shift
-    if (ONLINE) {
-      m = -INFINITY;
-#pragma unroll
-      for (int k = 0; k < kMaxCluster; ++k)
-        if (k < A.n_split) m = fmaxf(m, pm[k]);
-    }
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < kMaxCluster; ++k)
-      if (k < A.n_split) s += ONLINE ? ps[k] * ex2(pm[k] - m) : ps[k];
-    const float v = (m - kHeadroom + log2f(s)) * kLn2 + max_lw;
-    A.out[row] = v;
-    bad = !isfinite(v);
-  }
-  if (A.flag_out != nullptr) {
-    bad = __syncthreads_or(bad);
-    if (threadIdx.x == 0) A.flag_out[blockIdx.x * A.n_split + blockIdx.y] = bad;
-  }
-  cluster.sync();
 }
 
 // Once each block has written its partial (max, sum) per row: the last of
@@ -676,43 +487,29 @@ __device__ __forceinline__ void hi_step(float (&d)[4], const uint32_t (&hi)[4],
 // HIGH and BF16. KS > 0: the query operands in registers (HIGH: K = 8 KS;
 // BF16: K <= 16 KS), b_aug stages through shared memory (cp.async, two
 // buffers). KS == 0: any K, both operands read through L1. Each block
-// writes its partial (max, sum) per row, then merge_splits. FOLD (KS > 0
-// only): the folded call, each stage built in shared memory from b and
-// log_w, the split's blocks a cluster (see "The folded call").
-template <int SCHEME, int KS, bool ONLINE, bool FOLD>
+// writes its partial (max, sum) per row, then merge_splits.
+template <int SCHEME, int KS, bool ONLINE>
 __global__ void __launch_bounds__(kThreads)
 mixture_partial_kernel(const PartialArgs A) {
   static_assert(kRows == kThreads, "the merge takes one row per thread");
   static_assert(SCHEME != kFfma, "FFMA is ffma_partial_kernel");
   static_assert(KS <= max_reg_ks(SCHEME), "KS beyond the register path");
-  static_assert(!FOLD || KS > 0, "the folded form keeps a in registers");
   constexpr int kStage = KS == 0 ? 1 : stage_capacity_f4(SCHEME, KS);
-  __shared__ __align__(16) float4 sb[KS > 0 && !FOLD ? 2 : 1][kStage];
+  __shared__ __align__(16) float4 sb[KS > 0 ? 2 : 1][kStage];
   __shared__ float s_max_lw;
   __shared__ bool s_last;
-  // the folded form's raw stages, partials and split maxima
-  __shared__ float s_raw[FOLD ? 2 : 1][FOLD ? raw_floats(SCHEME, KS) : 1];
-  __shared__ float s_psum[FOLD ? kRows : 1], s_pmax[FOLD ? kRows : 1];
-  __shared__ __align__(16) float s_red[kThreads / 32];
 
-  if constexpr (FOLD) {
-    if (fold_gate_closed(A)) return;  // auto: nothing to rerun
-  } else {
-    if (A.gate != nullptr && *A.gate == 0) return;  // auto: nothing to rerun
-  }
+  if (A.gate != nullptr && *A.gate == 0) return;  // auto: nothing to rerun
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int n = A.n, p = A.p;
 
-  if constexpr (!FOLD)
-    if (warp == 0) block_max_lw(A, lane, &s_max_lw);
+  if (warp == 0) block_max_lw(A, lane, &s_max_lw);
 
   const int st_begin = blockIdx.y * A.stages_per_split;
   const int st_end = min(A.n_stages, st_begin + A.stages_per_split);
   auto issue = [&](int st, int buf) {
-    if constexpr (FOLD) {
-      issue_raw(A, st, s_raw[buf]);
-    } else if constexpr (KS > 0) {
+    if constexpr (KS > 0) {
       const float4* src = A.bfrag + (size_t)st * A.stage_f4;
       for (int i = threadIdx.x; i < A.stage_f4; i += kThreads) {
         const uint32_t dst =
@@ -724,16 +521,12 @@ mixture_partial_kernel(const PartialArgs A) {
     }
   };
   issue(st_begin, 0);
-  float max_lw;
-  if constexpr (!FOLD) {
-    __syncthreads();  // s_max_lw
-    max_lw = s_max_lw;
-  }
+  __syncthreads();  // s_max_lw
+  const float max_lw = s_max_lw;
 
   // rows of this thread: r[mt][h] = base + 16 mt + g + 8 h; ca is the row
-  // constant column of a_aug in the scheme's units (folded: |a|^2 first,
-  // its loads beside those of max_lw). BF16 sums |a|^2 in FP64 and keeps
-  // it rounded to FP32, all that ca takes of it.
+  // constant column of a_aug in the scheme's units. BF16 sums |a|^2 in
+  // FP64 and keeps it rounded to FP32, all that ca takes of it.
   int r[kMT][2];
   float ca[kMT][2];
   using Sq = std::conditional_t<SCHEME == kBf16, double, float>;
@@ -756,12 +549,6 @@ mixture_partial_kernel(const PartialArgs A) {
       sq += __shfl_xor_sync(kFull, sq, 2);
       sqs[mt][h] = static_cast<float>(sq);
     }
-  if constexpr (FOLD) {
-    // kept in shared memory for the merge, not in a register across the
-    // stage loop (ptxas spilled it there)
-    max_lw = fold_max_lw(A, st_begin, st_end, s_red);
-    if (threadIdx.x == 0) s_max_lw = max_lw;
-  }
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -817,20 +604,7 @@ mixture_partial_kernel(const PartialArgs A) {
 
   for (int st = st_begin, it = 0; st < st_end; ++st, ++it) {
     const float4* tile;
-    if constexpr (FOLD) {
-      if (st + 1 < st_end) {
-        issue(st + 1, (it + 1) & 1);
-        asm volatile("cp.async.wait_group 1;");
-      } else {
-        asm volatile("cp.async.wait_group 0;");
-      }
-      __syncthreads();  // raw stage st is in; the last stage is consumed
-      build_stage<SCHEME>(sb[0], RawStage{s_raw[it & 1], p | 1},
-                          st * kStageCenters, A.m, p, KS, threadIdx.x,
-                          kThreads);
-      __syncthreads();
-      tile = sb[0];
-    } else if constexpr (KS > 0) {
+    if constexpr (KS > 0) {
       if (st + 1 < st_end) {
         issue(st + 1, (it + 1) & 1);
         asm volatile("cp.async.wait_group 1;");
@@ -912,7 +686,7 @@ mixture_partial_kernel(const PartialArgs A) {
       for (int mt = 0; mt < kMT; ++mt)
         accumulate<ONLINE>(d[mt], mx[mt], th[mt], sm[mt]);
     }
-    if constexpr (KS > 0 && !FOLD)
+    if constexpr (KS > 0)
       __syncthreads();  // this buffer is refilled next
   }
 
@@ -935,21 +709,13 @@ mixture_partial_kernel(const PartialArgs A) {
         }
       }
       const int row = r[mt][h];
-      if constexpr (FOLD) {
-        if (t == 0) {
-          s_psum[row - blockIdx.x * kRows] = s0;
-          if (ONLINE) s_pmax[row - blockIdx.x * kRows] = m0;
-        }
-      } else if (t == 0 && row < n) {
+      if (t == 0 && row < n) {
         const size_t o = (size_t)blockIdx.y * n + row;
         A.part_sum[o] = s0;
         if (ONLINE) A.part_max[o] = m0;
       }
     }
-  if constexpr (FOLD)
-    fold_merge<ONLINE>(A, s_max_lw, s_pmax, s_psum);
-  else
-    merge_splits<ONLINE>(A, max_lw, &s_last);
+  merge_splits<ONLINE>(A, max_lw, &s_last);
 }
 
 // FFMA micro-tile coordinates of a thread: row group rg = 4 warp + lane / 8
@@ -1017,9 +783,8 @@ __device__ __forceinline__ void ffma_epilogue(const float (&d)[kMicro][kMicro],
 // staged in shared memory for the whole block, b's stages through two
 // cp.async buffers. KS == 0: any p, a's and b's columns through shared
 // memory in chunks of kChunk. Each block writes its partial (max, sum)
-// per row, then merge_splits. FOLD (KS > 0 only): the folded call (see
-// "The folded call").
-template <int KS, bool ONLINE, bool FOLD>
+// per row, then merge_splits.
+template <int KS, bool ONLINE>
 __global__ void __launch_bounds__(kThreads)
 ffma_partial_kernel(const PartialArgs A) {
   static_assert(kRows == kThreads, "the merge and ca take one row a thread");
@@ -1028,37 +793,25 @@ ffma_partial_kernel(const PartialArgs A) {
   static_assert(KS <= max_reg_ks(kFfma), "KS beyond the staged path");
   static_assert(stage_capacity_f4(kFfma, 1) == kThreads,
                 "a stage is at most KS float4s a thread");
-  static_assert(!FOLD || KS > 0, "the folded form stages a whole");
   constexpr int kACols = KS > 0 ? 8 * KS - 1 : kChunk;
   constexpr int kStage =
       KS > 0 ? stage_capacity_f4(kFfma, KS) : kChunk * kStageCenters / 4;
   __shared__ __align__(16) float sa[kACols * kRows];
-  __shared__ __align__(16) float4 sb[KS > 0 && !FOLD ? 2 : 1][kStage];
+  __shared__ __align__(16) float4 sb[KS > 0 ? 2 : 1][kStage];
   __shared__ __align__(16) float s_ca[kRows];
   __shared__ float s_max_lw;
   __shared__ bool s_last;
-  // the folded form's raw stages, partials and split maxima
-  __shared__ float s_raw[FOLD ? 2 : 1][FOLD ? raw_floats(kFfma, KS) : 1];
-  __shared__ float s_psum[FOLD ? kRows : 1], s_pmax[FOLD ? kRows : 1];
-  __shared__ __align__(16) float s_red[kThreads / 32];
 
-  if constexpr (FOLD) {
-    if (fold_gate_closed(A)) return;  // auto: nothing to rerun
-  } else {
-    if (A.gate != nullptr && *A.gate == 0) return;  // auto: nothing to rerun
-  }
+  if (A.gate != nullptr && *A.gate == 0) return;  // auto: nothing to rerun
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rg = 4 * warp + (lane >> 3), cg = lane & 7;
   const int n = A.n, p = A.p, base = blockIdx.x * kRows;
 
-  if constexpr (!FOLD)
-    if (warp == 0) block_max_lw(A, lane, &s_max_lw);
+  if (warp == 0) block_max_lw(A, lane, &s_max_lw);
   const int st_begin = blockIdx.y * A.stages_per_split;
   const int st_end = min(A.n_stages, st_begin + A.stages_per_split);
   auto issue = [&](int st, int buf) {
-    if constexpr (FOLD) {
-      issue_raw(A, st, s_raw[buf]);
-    } else if constexpr (KS > 0) {  // a stage is at most KS float4s a thread
+    if constexpr (KS > 0) {  // a stage is at most KS float4s a thread
       const float4* src = A.bfrag + (size_t)st * A.stage_f4;
 #pragma unroll
       for (int r = 0; r < KS; ++r) {
@@ -1080,13 +833,8 @@ ffma_partial_kernel(const PartialArgs A) {
       sa[(i - r * p) * kRows + r] = base + r < n ? src[i] : 0.f;
     }
   }
-  float max_lw;
-  if constexpr (FOLD) {
-    max_lw = fold_max_lw(A, st_begin, st_end, s_red);  // and sa
-  } else {
-    __syncthreads();  // s_max_lw, sa
-    max_lw = s_max_lw;
-  }
+  __syncthreads();  // s_max_lw, sa
+  const float max_lw = s_max_lw;
   {  // ca of row tid, its squares summed in column order
     float sq = 0.f;
     if (base + tid < n)
@@ -1111,20 +859,7 @@ ffma_partial_kernel(const PartialArgs A) {
 
   for (int st = st_begin, it = 0; st < st_end; ++st, ++it) {
     const float* tile;
-    if constexpr (FOLD) {
-      if (st + 1 < st_end) {
-        issue(st + 1, (it + 1) & 1);
-        asm volatile("cp.async.wait_group 1;");
-      } else {
-        asm volatile("cp.async.wait_group 0;");
-      }
-      __syncthreads();  // raw stage st is in; the last stage is consumed
-      build_stage<kFfma>(sb[0], RawStage{s_raw[it & 1], p | 1},
-                         st * kStageCenters, A.m, p, p + 1, threadIdx.x,
-                         kThreads);
-      __syncthreads();
-      tile = reinterpret_cast<const float*>(sb[0]);
-    } else if constexpr (KS > 0) {
+    if constexpr (KS > 0) {
       if (st + 1 < st_end) {
         issue(st + 1, (it + 1) & 1);
         asm volatile("cp.async.wait_group 1;");
@@ -1174,7 +909,7 @@ ffma_partial_kernel(const PartialArgs A) {
       }
     }
     ffma_epilogue<ONLINE>(d, mx, th, sm);
-    if constexpr (KS > 0 && !FOLD)
+    if constexpr (KS > 0)
       __syncthreads();  // this buffer is refilled next
   }
 
@@ -1196,92 +931,51 @@ ffma_partial_kernel(const PartialArgs A) {
       }
     }
     const int row = base + micro_row(rg, i);
-    if constexpr (FOLD) {
-      if (cg == 0) {
-        s_psum[micro_row(rg, i)] = s0;
-        if (ONLINE) s_pmax[micro_row(rg, i)] = m0;
-      }
-    } else if (cg == 0 && row < n) {
+    if (cg == 0 && row < n) {
       const size_t o = (size_t)blockIdx.y * n + row;
       A.part_sum[o] = s0;
       if (ONLINE) A.part_max[o] = m0;
     }
   }
-  if constexpr (FOLD)
-    fold_merge<ONLINE>(A, max_lw, s_pmax, s_psum);
-  else
-    merge_splits<ONLINE>(A, max_lw, &s_last);
+  merge_splits<ONLINE>(A, max_lw, &s_last);
 }
 
 template <int SCHEME, int KS, bool ONLINE>
 void start_partial(dim3 grid, cudaStream_t s, const PartialArgs& A) {
   if constexpr (SCHEME == kFfma)
-    ffma_partial_kernel<KS, ONLINE, false><<<grid, kThreads, 0, s>>>(A);
+    ffma_partial_kernel<KS, ONLINE><<<grid, kThreads, 0, s>>>(A);
   else
-    mixture_partial_kernel<SCHEME, KS, ONLINE, false>
-        <<<grid, kThreads, 0, s>>>(A);
-}
-
-// The folded form: the grid's gridDim.y splits of a query block are one
-// cluster (1, n_split, 1), whose blocks read each other's shared memory.
-template <int SCHEME, int KS, bool ONLINE>
-cudaError_t start_fold(dim3 grid, cudaStream_t s, const PartialArgs& A) {
-  void (*kernel)(const PartialArgs);
-  if constexpr (SCHEME == kFfma)
-    kernel = ffma_partial_kernel<KS, ONLINE, true>;
-  else
-    kernel = mixture_partial_kernel<SCHEME, KS, ONLINE, true>;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = grid.y;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, A);
+    mixture_partial_kernel<SCHEME, KS, ONLINE><<<grid, kThreads, 0, s>>>(A);
 }
 
 // The instance for kreg (the scheme's register k-steps, FFMA's staged
 // 8-row groups): KS = kreg where the scheme keeps the query operands on
-// chip, else KS = 0. The folded form has no KS = 0 instance: its plan
-// never asks for one, and the call is refused.
-template <int SCHEME, bool ONLINE, bool FOLD, int KS = 1>
+// chip, else KS = 0.
+template <int SCHEME, bool ONLINE, int KS = 1>
 cudaError_t launch_partial(int kreg, dim3 grid, cudaStream_t s,
                            const PartialArgs& A) {
   if constexpr (KS <= max_reg_ks(SCHEME)) {
     if (kreg == KS) {
       if (A.stage_f4 > stage_capacity_f4(SCHEME, KS))
         return cudaErrorInvalidValue;
-      if constexpr (FOLD) {
-        if (A.p > fold_max_p(SCHEME, KS)) return cudaErrorInvalidValue;
-        const cudaError_t err = start_fold<SCHEME, KS, ONLINE>(grid, s, A);
-        return err != cudaSuccess ? err : cudaGetLastError();
-      } else {
-        start_partial<SCHEME, KS, ONLINE>(grid, s, A);
-        return cudaGetLastError();
-      }
+      start_partial<SCHEME, KS, ONLINE>(grid, s, A);
+      return cudaGetLastError();
     }
-    return launch_partial<SCHEME, ONLINE, FOLD, KS + 1>(kreg, grid, s, A);
-  } else if constexpr (FOLD) {
-    return cudaErrorInvalidValue;
+    return launch_partial<SCHEME, ONLINE, KS + 1>(kreg, grid, s, A);
   } else {
     start_partial<SCHEME, 0, ONLINE>(grid, s, A);
     return cudaGetLastError();
   }
 }
 
-template <bool ONLINE, bool FOLD>
+template <bool ONLINE>
 cudaError_t launch_scheme(int scheme, dim3 grid, cudaStream_t s,
                           const PartialArgs& A) {
   switch (scheme) {
-    case kHigh: return launch_partial<kHigh, ONLINE, FOLD>(A.ks, grid, s, A);
-    case kBf16: return launch_partial<kBf16, ONLINE, FOLD>(A.ks, grid, s, A);
+    case kHigh: return launch_partial<kHigh, ONLINE>(A.ks, grid, s, A);
+    case kBf16: return launch_partial<kBf16, ONLINE>(A.ks, grid, s, A);
     default:
-      return launch_partial<kFfma, ONLINE, FOLD>((A.ks + 7) / 8, grid, s, A);
+      return launch_partial<kFfma, ONLINE>((A.ks + 7) / 8, grid, s, A);
   }
 }
 
@@ -1295,19 +989,16 @@ cudaError_t counted(cudaError_t err) {
 }
 
 // The static and/or online pass (mode as the C entry's)
-template <bool FOLD>
 cudaError_t launch_passes(int mode, int scheme, dim3 grid, cudaStream_t s,
-                          PartialArgs A, int* flag, int n_flags) {
+                          PartialArgs A, int* flag) {
   if (mode != 1) {
     A.flag_out = mode == 2 ? flag : nullptr;
-    const cudaError_t err =
-        counted(launch_scheme<false, FOLD>(scheme, grid, s, A));
+    const cudaError_t err = counted(launch_scheme<false>(scheme, grid, s, A));
     if (err != cudaSuccess || mode == 0) return err;
     A.flag_out = nullptr;
     A.gate = flag;
-    A.n_gate = n_flags;
   }
-  return counted(launch_scheme<true, FOLD>(scheme, grid, s, A));
+  return counted(launch_scheme<true>(scheme, grid, s, A));
 }
 
 }  // namespace
@@ -1317,15 +1008,11 @@ cudaError_t launch_passes(int mode, int scheme, dim3 grid, cudaStream_t s,
 // launch plan (ops/kernels.py::launch_plan): bfrag [n_stages * stage_f4
 // float4s], lwmax [prologue_blocks], part_max and part_sum [n_split, n],
 // arrivals [q_blocks] and flag [1] (int32); a prologue block builds
-// ceil(n_stages / prologue_blocks) stages. prologue_blocks 0 asks for the
-// folded call (see "The folded call"): no prologue, n_split <= 8 splits a
-// cluster, each pass one launch; bfrag, lwmax, part_max, part_sum and
-// arrivals are not used, and flag holds [q_blocks * n_split] int32 that
-// auto's static pass writes whole and its online pass reads (static and
-// online alone do not touch it). ks counts the scheme's
-// k-steps: of 8 columns (HIGH), 16 (BF16), or FFMA's rows of a stage,
-// which must be p+1 (b's p columns and cb); stage_f4 is the plan's size of
-// one stage of 64 centers' b_aug, in float4s.
+// ceil(n_stages / prologue_blocks) stages, and prologue_blocks must be at
+// least 1. ks counts the scheme's k-steps: of 8 columns (HIGH), 16 (BF16),
+// or FFMA's rows of a stage, which must be p+1 (b's p columns and cb);
+// stage_f4 is the plan's size of one stage of 64 centers' b_aug, in
+// float4s.
 // mode: 0 static, 1 online, 2 auto (static pass that flags a non-finite
 // row, then an online pass that runs only if flagged: the TPU wrapper's
 // lax.cond, on the device). scheme: 0 HIGH (3xTF32), 1 BF16, 2 FFMA.
@@ -1338,19 +1025,11 @@ extern "C" int mixture_logsumexp_f32(
     int stages_per_split, int n_split, int prologue_blocks, int mode,
     int scheme, void* stream) {
   if (scheme < kHigh || scheme > kFfma || stage_f4 < 1 ||
-      (scheme == kFfma && ks != p + 1))
+      prologue_blocks < 1 || (scheme == kFfma && ks != p + 1))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int q_blocks = (n + kRows - 1) / kRows;
   const dim3 grid(q_blocks, n_split);
-  if (prologue_blocks == 0) {
-    if (n_split < 1 || n_split > kMaxCluster) return cudaErrorInvalidValue;
-    PartialArgs A{a, nullptr, nullptr, 0, n, p, ks, n_stages,
-                  stages_per_split, n_split, stage_f4, nullptr, nullptr,
-                  nullptr, nullptr, nullptr, out, b, log_w, m, 0};
-    return launch_passes<true>(mode, scheme, grid, s, A, flag,
-                               q_blocks * n_split);
-  }
   const int spb = (n_stages + prologue_blocks - 1) / prologue_blocks;
   prologue_kernel<<<prologue_blocks, kPrologueThreads, 0, s>>>(
       b, log_w, m, p, ks, stage_f4, scheme, n_stages, spb, bfrag, lwmax,
@@ -1361,7 +1040,7 @@ extern "C" int mixture_logsumexp_f32(
                 prologue_blocks, n, p, ks, n_stages, stages_per_split,
                 n_split, stage_f4, part_max, part_sum,
                 arrivals, nullptr, nullptr, out};
-  return launch_passes<false>(mode, scheme, grid, s, A, flag, 1);
+  return launch_passes(mode, scheme, grid, s, A, flag);
 }
 
 // Kernels the C entry has launched in this process, the prologue counted

@@ -790,15 +790,15 @@ class AbcSmc:
 
         Routes (config ``device_dispatch``). ``"sequential"``: one eager
         step per set. ``"fused"``: a fresh run goes through
-        ``Generation.run_scan`` (one ``(n, keep)``) or ``run_chain``
-        (varying sizes): on a CUDA device each same-shape bucket replays
-        one CUDA graph of the step per set, MULTIVARIATE noise included
-        (its rejection loop runs a fixed block of rounds in the graph; the
-        count is read once per set after the replay, and a set whose rows
-        are not all accepted within the block finishes its rounds eagerly
-        before the next set); on the CPU the chain runs eagerly (said under
-        ``verbose``, and every set's route is in ``timings``). Every set is
-        computed, and an ``nrmse_tolerance``
+        ``Generation.run_chain`` (route "scan" where every set has one
+        ``(n, keep)``, "chain" otherwise): on a CUDA device each same-shape
+        bucket replays one CUDA graph of the step per set, MULTIVARIATE
+        noise included (its rejection loop runs a fixed block of rounds in
+        the graph; the count is read once per set after the replay, and a
+        set whose rows are not all accepted within the block finishes its
+        rounds eagerly before the next set); on the CPU the chain runs
+        eagerly (said under ``verbose``, and every set's route is in
+        ``timings``). Every set is computed, and an ``nrmse_tolerance``
         cuts the mirror at the first converged set afterwards: the stored
         rows are the sequential run's. ``"auto"`` takes the fused route
         only where at least 4 sets would replay a graph and the full
@@ -901,9 +901,9 @@ class AbcSmc:
                      >= _AUTO_MIN_REPLAYS))
             and not any_split
         )
-        use_scan = fused_ok and len(set(sizes)) == 1 and len(set(keeps)) == 1
-        route = ("scan" if use_scan else "chain" if fused_ok
-                 else "sequential")
+        route = ("sequential" if not fused_ok
+                 else "scan" if len(set(zip(sizes, keeps))) == 1
+                 else "chain")
         if verbose and fused_ok:
             blocker = gen.capture_blocker()
             sys.stderr.write(
@@ -922,14 +922,9 @@ class AbcSmc:
                 fetched, info, pending_serials = self._run_sequential(
                     gen, generator, pending, t_first, sizes, keeps, phases)
             else:
-                if use_scan:
-                    _, hist = gen.run_scan(generator, sizes[0], keeps[0],
-                                           n_sets, full_history=True)
-                    entries = [("bucket", n_sets, hist)]
-                else:
-                    _, entries = gen.run_chain(generator, sizes, keeps,
-                                               full_history=True,
-                                               bucketed_history=True)
+                _, entries = gen.run_chain(generator, sizes, keeps,
+                                           full_history=True,
+                                           bucketed_history=True)
                 fetched, info = None, gen.set_info
 
         # ---- fetch every set once, then mirror into the run store ----
@@ -1064,13 +1059,7 @@ class AbcSmc:
                 ev[1].record()
             state = (res.survivor_params, res.weights, res.doubled_variance)
             converged = self._nrmse_converged(res.survivor_metrics, t)
-            inf = {"route": "eager", "events": ev,
-                   "sim_events": res.sim_events, "stages": res.stages,
-                   "mvn_rounds": res.mvn_rounds,
-                   "mvn_finished_eagerly": res.mvn_finished_eagerly,
-                   "mvn_factor": res.mvn_factor,
-                   "sim_steps": res.sim_steps,
-                   "box_cox_lambdas": res.box_cox_lambdas}
+            inf = gen.set_record("eager", ev, res)
             info.append(inf)
             if split_t:
                 # the set's seven buffers at once, then its O(N) device

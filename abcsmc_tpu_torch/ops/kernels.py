@@ -31,15 +31,12 @@ kernel decides the rerun on the device, as the TPU's ``lax.cond`` does: the
 static pass raises a flag, and the online pass is always launched but
 returns at once unless the flag is up. No mode syncs the host.
 
-At up to ``_FOLD_MAX_CENTERS`` centers (the shipped examples' keeps,
-102-410) a call is folded (:func:`launch_plan`): no prologue, each partial
-block builds its stages from ``b`` and ``log_w`` and takes ``max_lw``
-itself, the center splits of a query block are one thread-block cluster
-that merges over distributed shared memory, so a static or online call is
-one kernel launch and an auto call two (above it: the prologue, then one
-or two). Up to ``_SHORT_MAX_CENTERS`` (dengue's 2,048, the tools' 5,000
-and 10,000) an unfolded call takes short splits: at most
-``_SHORT_MAX_SPLIT`` of them, and a prologue block a stage.
+A call is the prologue, then one partial kernel a pass (two launches in
+static and online, three in auto; :func:`launch_plan`). Up to
+``_SHORT_MAX_CENTERS`` centers (the shipped examples' keeps of 102-410,
+dengue's 2,048, the tools' 5,000 and 10,000) it takes short splits: at
+most ``_SHORT_MAX_SPLIT`` of them, and a prologue block a stage. Above,
+the plan is the full rule's.
 """
 
 from __future__ import annotations
@@ -47,13 +44,12 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-import re
 from typing import NamedTuple
 
 import torch
 
 from abcsmc_tpu_torch.ops import _build
-from abcsmc_tpu_torch.ops._build import CSRC
+from abcsmc_tpu_torch.ops.sim_kernels import sir_loop
 
 NEG_INF = -1e30
 MODES = ("auto", "static", "online")
@@ -79,30 +75,7 @@ _MAX_SPLIT_STAGES = 2048   # stages (131,072 centers) one split sums at most
 _REF_BLOCK = 2048          # centers per block of the plain version
 
 
-def _source_limits(path=CSRC / "mixture_logsumexp.cu"):
-    """The kernel source's limits of the folded call: the splits of one
-    cluster (csrc kMaxCluster), and for each scheme the largest p whose
-    stage the folded instances build, b's p columns and the scheme's
-    added ones in the largest KS that keeps the query operands on chip
-    (csrc max_reg_ks, fold_max_p: KS k-steps of 8 or 16 columns,
-    "highest"'s KS groups of 8 stage rows). Read from the source text,
-    which the C entry checks every call against."""
-    text = path.read_text()
-    split = int(re.search(r"constexpr int kMaxCluster = (\d+);", text)[1])
-    ks = re.search(r"return scheme == kHigh \? (\d+) : scheme == kBf16 \? "
-                   r"(\d+) : (\d+);", text)
-    cols = {"high": 8 * int(ks[1]), "default": 16 * int(ks[2]),
-            "highest": 8 * int(ks[3])}
-    return split, {prec: c - _AUG_COLS[prec] for prec, c in cols.items()}
-
-
-# The folded call (csrc, "The folded call"): at most this many centers (8
-# stages, one cluster: the keeps at which it read faster than the
-# unfolded call on an H100, PERF.md), splits and parameters (from the
-# kernel source, :func:`_source_limits`).
-_FOLD_MAX_CENTERS = 512
-_FOLD_MAX_SPLIT, _FOLD_MAX_P = _source_limits()
-# Short splits: up to this many centers an unfolded call takes at most
+# Short splits: up to this many centers a call takes at most
 # _SHORT_MAX_SPLIT splits (fewer, longer splits than _BLOCKS_PER_SM asks
 # for) and a prologue block a stage (more blocks than 256 centers each)
 _SHORT_MAX_CENTERS = 16_384
@@ -227,12 +200,7 @@ class LaunchPlan(NamedTuple):
     scheme's layout (``stage_floats`` words each), the prologue's
     per-block maxima, the per-split partial sums and maxima, the
     per-query-block arrival counters and the rerun flag (int32), each
-    starting at an offset in ``offsets`` (multiples of 4 words).
-
-    A folded plan (``folded``: ``prologue_blocks`` 0) has no prologue and
-    at most ``_FOLD_MAX_SPLIT`` splits (its stages), one cluster a query
-    block; its only workspace is the last segment, one int32 flag per
-    (query block, split) for auto's rerun, every other segment empty."""
+    starting at an offset in ``offsets`` (multiples of 4 words)."""
     ks: int
     n_stages: int
     stages_per_split: int
@@ -254,10 +222,6 @@ class LaunchPlan(NamedTuple):
     @property
     def stage_floats(self) -> int:
         return _stage_floats(self.ks, self.precision)
-
-    @property
-    def folded(self) -> bool:
-        return self.prologue_blocks == 0
 
     def split_centers(self, y: int, m: int) -> range:
         """The real centers (index < m) of split ``y``."""
@@ -298,37 +262,30 @@ def launch_plan(n: int, m: int, p: int, sms: int, online: bool, *,
     count is trimmed so that none is empty; the cap is not applied.
     ``precision`` sets the k-step and the b_aug stage's size.
 
-    Folded (at most ``_FOLD_MAX_CENTERS`` centers, p within
-    ``_FOLD_MAX_P``): the same aim of blocks per SM, so at most
-    ``_FOLD_MAX_SPLIT`` splits (8 stages), the blocks of one cluster; no
-    prologue and no workspace but the flags (:class:`LaunchPlan`).
-    Unfolded up to ``_SHORT_MAX_CENTERS``: at most ``_SHORT_MAX_SPLIT``
-    splits (fewer, longer ones: at 2,048-10,000 centers they read faster
-    than the full aim on an H100, PERF.md) and a prologue block a stage;
-    above, the full aim and a prologue block for 256 centers."""
+    Two regimes. Up to ``_SHORT_MAX_CENTERS`` (short splits): at most
+    ``_SHORT_MAX_SPLIT`` splits (fewer, longer ones: at 2,048-10,000
+    centers they read faster than the full aim on an H100, PERF.md) and
+    a prologue block a stage. Above: the full aim and a prologue block
+    for 256 centers."""
     _check_precision(precision)
     ks = -(-(p + _AUG_COLS[precision]) // _K_STEP[precision])
     n_stages = -(-m // _STAGE_CENTERS)
     q_blocks = -(-n // _ROWS)
+    short = m <= _SHORT_MAX_CENTERS
     if n_split is not None:
         _check_split(n_split, m)
-    fold = m <= _FOLD_MAX_CENTERS and p <= _FOLD_MAX_P[precision]
-    if n_split is None:
+    else:
         want = -(-_BLOCKS_PER_SM * sms // q_blocks)
         n_split = max(1, min(want, n_stages),
                       -(-n_stages // _MAX_SPLIT_STAGES))
-        if not fold and m <= _SHORT_MAX_CENTERS:
+        if short:
             n_split = min(n_split, _SHORT_MAX_SPLIT)
     sps = -(-n_stages // n_split)
     n_split = -(-n_stages // sps)
-    if fold:
-        prologue_blocks = 0
-        sizes = (0, 0, 0, 0, 0, q_blocks * n_split)
-    else:
-        prologue_blocks = (n_stages if m <= _SHORT_MAX_CENTERS else
-                           -(-n_stages * _STAGE_CENTERS // _PROLOGUE_THREADS))
-        sizes = (n_stages * _stage_floats(ks, precision), prologue_blocks,
-                 n_split * n, n_split * n if online else 0, q_blocks, 1)
+    prologue_blocks = (n_stages if short else
+                       -(-n_stages * _STAGE_CENTERS // _PROLOGUE_THREADS))
+    sizes = (n_stages * _stage_floats(ks, precision), prologue_blocks,
+             n_split * n, n_split * n if online else 0, q_blocks, 1)
     offsets, at = [], 0
     for s in sizes:
         offsets.append(at)
@@ -361,7 +318,7 @@ def _launch_count():
 #: what :func:`kernel_launches` adds to the C entry's count: less the
 #: launches it counted while a CUDA graph captured them (recorded, not
 #: run), plus those the graph's replays ran (:func:`graph_capture_counts`,
-#: :func:`count_launches`)
+#: :func:`count_replay`)
 _graph_offset = 0
 
 
@@ -392,11 +349,10 @@ class _Call(NamedTuple):
     """What one (shape, device, mode, scheme, split) call needs besides
     its tensors, made once (:func:`_call_of`): the plan; the C entry's
     int arguments in order (n .. scheme); the floats of the one
-    allocation (the output's n, rounded up to 4 where the plan's
-    workspace follows: not for a folded static or online call); the byte
-    offsets in it of the six workspace pointers in the C entry's order
-    (bfrag, lwmax, part_max, part_sum, arrivals, flag); and the
-    partial-kernel passes to count."""
+    allocation (the output's n, rounded up to 4, then the plan's
+    workspace); the byte offsets in it of the six workspace pointers in
+    the C entry's order (bfrag, lwmax, part_max, part_sum, arrivals,
+    flag); and the partial-kernel passes to count."""
     plan: LaunchPlan
     ints: tuple
     floats: int
@@ -413,11 +369,10 @@ def _call_of(n: int, m: int, p: int, index: int, mode: str,
     ints = (n, m, p, plan.ks, plan.stage_floats // 4, plan.n_stages,
             plan.stages_per_split, plan.n_split, plan.prologue_blocks,
             _CSRC_MODE[mode], _CSRC_SCHEME[precision])
-    ws = plan.ws_floats if mode == "auto" or not plan.folded else 0
-    out_floats = -(-n // 4) * 4 if ws else n
+    out_floats = -(-n // 4) * 4
     bfrag, lwmax, psum, pmax, arrivals, flag = (
         4 * (out_floats + o) for o in plan.offsets)
-    return _Call(plan, ints, out_floats + ws,
+    return _Call(plan, ints, out_floats + plan.ws_floats,
                  (bfrag, lwmax, pmax if online else psum, psum, arrivals,
                   flag), 2 if mode == "auto" else 1)
 
@@ -425,10 +380,10 @@ def _call_of(n: int, m: int, p: int, index: int, mode: str,
 def _launch(a, b, log_w, mode: str, *, precision: str,
             n_split: int | None = None):
     """One call of the kernel on the current stream (csrc ``mode`` 0
-    static, 1 online, 2 auto; the scheme ``precision`` names): folded, one
-    partial kernel a pass; else the prologue, then the static and/or
-    online partial kernel. The output and the workspace are one
-    torch.empty (the output its first n floats); nothing syncs the host."""
+    static, 1 online, 2 auto; the scheme ``precision`` names): the
+    prologue, then the static and/or online partial kernel. The output
+    and the workspace are one torch.empty (the output its first n
+    floats); nothing syncs the host."""
     n, p = a.shape
     m = b.shape[0]
     index = a.device.index
@@ -454,42 +409,38 @@ def _launch(a, b, log_w, mode: str, *, precision: str,
     # partial-kernel launches; auto's online pass counts though it may
     # return at once
     count_launches(call.passes, precision)
-    return buf if call.floats == n else buf[:n]
+    return buf[:n]
 
 
 def launches_per_call(n: int, m: int, p: int, mode: str, *,
                       precision: str = "highest", sms: int = 132,
                       n_split: int | None = None) -> int:
-    """Kernel launches the plan says one call makes on the card, the
-    prologue counted: one partial kernel a pass (auto: two), and the
-    prologue unless the plan is folded (:func:`kernel_launches` counts
-    what a call did launch)."""
-    plan = launch_plan(n, m, p, sms, mode != "static", n_split=n_split,
-                       precision=precision)
-    return (2 if mode == "auto" else 1) + (0 if plan.folded else 1)
+    """Kernel launches the plan says one call makes on the card: the
+    prologue and one partial kernel a pass (auto: two), whatever the
+    shape (:func:`kernel_launches` counts what a call did launch)."""
+    return (2 if mode == "auto" else 1) + 1
 
 
-def count_launches(k: int, precision: str, kernels: int = 0):
+def count_launches(k: int, precision: str):
     """Add ``k`` partial-kernel launches of scheme ``precision`` to the
-    counts. A replayed graph adds what it holds, and ``kernels``, the C
-    entry's launches in it (prologue counted), to :func:`kernel_launches`:
-    a replay does not pass through the C entry."""
-    global _graph_offset
+    counts."""
     mixture_logsumexp.launches += k
     mixture_logsumexp.launches_by_precision[precision] += k
-    _graph_offset += kernels
 
 
 @contextlib.contextmanager
 def graph_capture_counts():
     """Around a CUDA graph capture: the launches it records run only when
-    the graph is replayed, so every count is left as it was before it. The
-    dict it yields is filled on exit with what the graph holds: "partial"
-    (partial-kernel launches) and "kernels" (the C entry's launches), the
-    two a replay passes to :func:`count_launches`."""
+    the graph is replayed, so every count of the port's kernels is left
+    as it was before it. The dict it yields is filled on exit with what
+    the graph holds, which each replay passes to :func:`count_replay`:
+    "partial" (the weight kernel's partial-kernel launches), "kernels"
+    (its C entry's launches, the prologue counted) and "sir_loop" (the
+    simulator kernel's, ``sim_kernels.sir_loop.launches``)."""
     global _graph_offset
     launches = mixture_logsumexp.launches
     by_precision = dict(mixture_logsumexp.launches_by_precision)
+    loops = sir_loop.launches
     c0 = _c_launches()
     held: dict = {}
     try:
@@ -497,9 +448,22 @@ def graph_capture_counts():
     finally:
         held["partial"] = mixture_logsumexp.launches - launches
         held["kernels"] = _c_launches() - c0
+        held["sir_loop"] = sir_loop.launches - loops
         mixture_logsumexp.launches = launches
         mixture_logsumexp.launches_by_precision.update(by_precision)
+        sir_loop.launches = loops
         _graph_offset -= held["kernels"]
+
+
+def count_replay(held: dict, precision: str):
+    """Add one replay of a captured graph to every count: ``held`` is what
+    :func:`graph_capture_counts` yielded at its capture, ``precision`` the
+    weight kernel's scheme in it. A replay passes through neither the
+    wrappers nor the C entry."""
+    global _graph_offset
+    count_launches(held["partial"], precision)
+    _graph_offset += held["kernels"]
+    sir_loop.launches += held["sir_loop"]
 
 
 def _check_cuda_inputs(a, b, log_w):

@@ -105,5 +105,5 @@ def sir_loop(params, seeds, population, t_steps: int, i0):
 #: kernel launches :func:`sir_loop` issued, one a call (a plain integer;
 #: callers reset it to 0 to count a main-path pass). A launch recorded
 #: into a CUDA graph counts once per replay of the graph instead
-#: (``Generation._record``, ``Generation._replay``)
+#: (``kernels.graph_capture_counts``, ``kernels.count_replay``)
 sir_loop.launches = 0

@@ -78,7 +78,6 @@ from abcsmc_tpu_torch.ops import pls as pls_mod
 from abcsmc_tpu_torch.ops import stats as stats_mod
 from abcsmc_tpu_torch.ops import weights as weights_mod
 from abcsmc_tpu_torch.ops.resample import _stratum_points, setup_mvn_sampler
-from abcsmc_tpu_torch.ops.sim_kernels import sir_loop
 from abcsmc_tpu_torch.parallel.mesh import (
     ParticleMesh, fetch_rows_global, single_mesh,
 )
@@ -311,8 +310,7 @@ class _CapturedStep:
     """One later-set step captured into a CUDA graph: static input tensors
     (population or, for a precomputed step, parameters and metrics;
     previous state; draws), the static result, and the kernel launches the
-    graph holds (``kernels.graph_capture_counts``' "partial" and
-    "kernels", and "sir_loop", the ``sim_kernels.sir_loop`` launches)."""
+    graph holds (what ``kernels.graph_capture_counts`` yielded)."""
 
     def __init__(self, graph, params, seeds, state, draws, result,
                  kernel_launches: dict, metrics=None):
@@ -492,12 +490,8 @@ class Generation:
         #: the stages of the step that is running (:meth:`_step` makes
         #: them; the ranking's selection and :meth:`_finish` mark theirs)
         self._stages = StepStages(timed=False)
-        #: per set of the last run_scan / run_chain / run: the route
-        #: ("eager" or "replay"), CUDA events around the set, the simulate
-        #: events and the later stages (:class:`StepStages`) of an eager
-        #: set, the MULTIVARIATE count and whether its rounds ran past the
-        #: first block, the proposal's Cholesky factor, the simulator's time
-        #: steps a row, and the chosen Box-Cox lambdas
+        #: per set of the last run_scan / run_chain / run, its
+        #: :meth:`set_record`
         self.set_info: list[dict] = []
         self._graphs: dict = {}
 
@@ -1625,8 +1619,17 @@ class Generation:
             base += (params, seeds, res.metrics)
         return base
 
-    def _note_set(self, route, events, res):
-        self.set_info.append({
+    @staticmethod
+    def set_record(route: str, events, res: GenerationResult) -> dict:
+        """What a run keeps of one set for its timings: the route
+        ("eager" or "replay"), CUDA events around the set (None off the
+        card), the simulate events and the later stages
+        (:class:`StepStages`) of an eager set, the MULTIVARIATE count and
+        whether its rounds ran past the first block, the proposal's
+        Cholesky factor, the simulator's time steps a row, and the chosen
+        Box-Cox lambdas. The tensors are copies: a replayed set's result
+        is the graph's static output, which the next replay overwrites."""
+        return {
             "route": route, "events": events, "sim_events": res.sim_events,
             "stages": res.stages,
             "mvn_rounds": res.mvn_rounds,
@@ -1636,7 +1639,7 @@ class Generation:
             "sim_steps": res.sim_steps,
             "box_cox_lambdas": (None if res.box_cox_lambdas is None
                                 else res.box_cox_lambdas.clone()),
-        })
+        }
 
     def _eager_set(self, params, seeds, keep, n_next, draws, state, n_valid):
         events = None
@@ -1648,7 +1651,7 @@ class Generation:
                              n_valid)
         if events:
             events[1].record()
-        self._note_set("eager", events, res)
+        self.set_info.append(self.set_record("eager", events, res))
         return res
 
     def _capture(self, n: int, keep: int, like: GenerationResult,
@@ -1660,9 +1663,8 @@ class Generation:
         the capture meets no first-use work. The kernel's workspace is
         allocated inside the capture (the graph's own pool) and its
         arrival counters and rerun flag are reset by its prologue kernel,
-        which is part of the graph (a folded call, at up to 512 survivors,
-        has no counters: its rerun flags are written whole each replay).
-        The whole capture is the range ``abcsmc.capture``."""
+        which is part of the graph. The whole capture is the range
+        ``abcsmc.capture``."""
         t0 = time.perf_counter()
         with record_function("abcsmc.capture"):
             params = _tmap(torch.empty_like, like.next_params)
@@ -1698,17 +1700,13 @@ class Generation:
 
         torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()
-        # the MULTIVARIATE count stays on the device: read after a replay.
-        # The launches the capture records run at each replay, not now
+        # the MULTIVARIATE count stays on the device: read after a replay
         self._capturing = True
-        loops = sir_loop.launches
         try:
             with graph_capture_counts() as held, torch.cuda.graph(graph):
                 result = body()
         finally:
             self._capturing = False
-        held["sir_loop"] = sir_loop.launches - loops
-        sir_loop.launches = loops
         self.graph_captures += 1
         return graph, result, held
 
@@ -1770,7 +1768,7 @@ class Generation:
         (:meth:`_finish_rejection`) before the caller draws the next set.
         The whole of it is the range ``abcsmc.replay``, its host seconds
         added to ``replay_seconds``."""
-        from abcsmc_tpu_torch.ops.kernels import count_launches
+        from abcsmc_tpu_torch.ops.kernels import count_replay
 
         t0 = time.perf_counter()
         with record_function("abcsmc.replay"):
@@ -1792,11 +1790,9 @@ class Generation:
                 events[1].record()
             self.dispatches += 1
             self.graph_replays += 1
-            count_launches(cap.kernel_launches["partial"],
-                           self.weight_precision,
-                           cap.kernel_launches["kernels"])
-            sir_loop.launches += cap.kernel_launches["sir_loop"]
-            self._note_set("replay", events, cap.result)
+            count_replay(cap.kernel_launches, self.weight_precision)
+            self.set_info.append(self.set_record("replay", events,
+                                                 cap.result))
         self.replay_seconds += time.perf_counter() - t0
         return cap.result
 
@@ -1877,12 +1873,13 @@ class Generation:
     def run_scan(self, generator: torch.Generator, n: int, keep: int,
                  gens: int, full_history: bool = False):
         """``gens`` generations of one shape (n, keep) as one fused run:
-        generation 0 eagerly, the others as one bucket
-        (:meth:`_run_bucket`). The draws replicate the sequential loop
-        (:meth:`init_population`, then one :meth:`draw_step` per set from
-        the one generator, just before the set runs), so everything a set
-        stores equals the sequential loop's, bit for bit on the CPU.
-        Every set proposes ``n`` rows; the last set's proposal is unused.
+        :meth:`run_chain`'s loop over that schedule (generation 0 eagerly,
+        the others as one bucket), its history stacked. The draws
+        replicate the sequential loop (:meth:`init_population`, then one
+        :meth:`draw_step` per set from the one generator, just before the
+        set runs), so everything a set stores equals the sequential loop's,
+        bit for bit on the CPU. Every set proposes ``n`` rows; the last
+        set's proposal is unused.
 
         On a CUDA device the bucket's step is captured into a CUDA graph
         once per shape and replayed per set (kept on this object for later
@@ -1900,24 +1897,19 @@ class Generation:
         callers gate it by size (``AbcSmc.run_device`` does)."""
         if gens < 1:
             raise ValueError(f"gens must be >= 1, got {gens}")
-        self.set_info = []
-        params, seeds = map(self._in, self.init_population(generator, n))
-        res = self._eager_set(params, seeds, keep, n,
-                              self.draw_step(generator, n), None, n)
-        first = tuple(_tmap(lambda x: x[None], leaf)
-                      for leaf in self._leaves(res, params, seeds,
-                                               full_history))
-        if gens == 1:
-            return self._out_result(res), tuple(map(self._out, first))
-        state = (res.survivor_params, res.weights, res.doubled_variance)
-        _, _, _, stacks, last = self._run_bucket(
-            res.next_params, res.next_seeds, state, generator, gens - 1, n,
-            keep, full_history)
-        hist = []
-        for a, b in zip(first, stacks):
-            hist.append([torch.cat([x, y]) for x, y in zip(a, b)]
-                        if isinstance(a, list) else torch.cat([a, b]))
-        return self._out_result(last), tuple(map(self._out, hist))
+        last, _, entries = self._chain(generator, [n] * gens, [keep] * gens,
+                                       full_history, n)
+        parts = [e[2] if e[0] == "bucket"
+                 else tuple(_tmap(lambda x: x[None], leaf) for leaf in e[1])
+                 for e in entries]
+
+        def stacked(pieces):
+            if isinstance(pieces[0], list):
+                return [torch.cat(shards) for shards in zip(*pieces)]
+            return torch.cat(pieces)
+
+        return (self._out_result(last),
+                tuple(stacked(pieces) for pieces in zip(*parts)))
 
     @staticmethod
     def bucket_plan(set_sizes, keep_sizes):
@@ -1976,36 +1968,50 @@ class Generation:
         if G < 1 or len(keep_sizes) != G:
             raise ValueError("set_sizes and keep_sizes must be equally long "
                              "and not empty")
-        self.set_info = []
+        _, state, entries = self._chain(generator, set_sizes, keep_sizes,
+                                        full_history, 0)
+        if bucketed_history:
+            return state, entries
+        history = []
+        for e in entries:
+            if e[0] == "set":
+                history.append(e[1])
+            else:
+                _, L, ys = e
+                history.extend(tuple(_tmap(lambda x: x[i], y) for y in ys)
+                               for i in range(L))
+        return state, history
 
+    def _chain(self, generator, set_sizes, keep_sizes, full_history: bool,
+               n_last: int):
+        """The fused loop of :meth:`run_chain` and :meth:`run_scan` over a
+        schedule, its final set proposing ``n_last`` rows where it runs
+        singly (in a bucket it proposes the bucket's ``n``). Returns the
+        last set's :class:`GenerationResult`, the final state and the
+        bucketed history."""
+        G = len(set_sizes)
+        self.set_info = []
         params, seeds = map(self._in,
                             self.init_population(generator, set_sizes[0]))
-        state = None
-        history = []
+        state, history, res = None, [], None
         for t, L in self.bucket_plan(set_sizes, keep_sizes):
             n_t, keep_t = set_sizes[t], keep_sizes[t]
             if L == 1:
-                n_next = set_sizes[t + 1] if t + 1 < G else 0
+                n_next = set_sizes[t + 1] if t + 1 < G else n_last
                 res = self._eager_set(
                     params, seeds, keep_t, n_next,
                     self.draw_step(generator, n_next), state, n_t)
-                entry = tuple(map(self._out, self._leaves(
-                    res, params, seeds, full_history)))
-                history.append(("set", entry) if bucketed_history else entry)
+                history.append(("set", tuple(map(self._out, self._leaves(
+                    res, params, seeds, full_history)))))
                 state = (res.survivor_params, res.weights,
                          res.doubled_variance)
                 params, seeds = res.next_params, res.next_seeds
             else:
-                params, seeds, state, ys, _ = self._run_bucket(
+                params, seeds, state, ys, res = self._run_bucket(
                     params, seeds, state, generator, L, n_t, keep_t,
                     full_history)
-                ys = tuple(map(self._out, ys))
-                if bucketed_history:
-                    history.append(("bucket", L, ys))
-                else:
-                    history.extend(tuple(_tmap(lambda x: x[i], y) for y in ys)
-                                   for i in range(L))
-        return state, history
+                history.append(("bucket", L, tuple(map(self._out, ys))))
+        return res, state, history
 
     def run(self, generator: torch.Generator, set_sizes, keep_sizes):
         """The sequential loop: every generation as its own eager step.

@@ -25,9 +25,9 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
              under torch.cuda.set_sync_debug_mode("error"); then every
              scheme at those four large shapes, 200,000 x 50,000 x 13 and
              the shipped survivor keeps (every example's keep_t x
-             keep_{t-1} x p, folded up to 512 centers: one launch a pass;
-             2,048^2 x 16, 10,000 x 5,000 x 6 and 10,000^2 x 6 in short
-             splits) in every mode against its own plain version, auto
+             keep_{t-1} x p, 2,048^2 x 16, 10,000 x 5,000 x 6 and
+             10,000^2 x 6, all in short splits: the prologue and one
+             launch a pass) in every mode against its own plain version, auto
              timed three ways (``ms`` host-paced, ``device_ms`` from a
              replayed CUDA graph of the calls, ``host_us`` to enqueue one)
              beside its plain version, its bound and the issue-slot floor
@@ -568,7 +568,7 @@ def phase_sir_kernel():
 
 def phase_kernel_schemes(errs):
     """Every dot scheme at SCHEME_SHAPES and at the shipped keeps
-    (``keep_shapes``; folded up to 512 centers) in each mode against its
+    (``keep_shapes``; short splits) in each mode against its
     own plain version (float32; "default" rounds its operands to bfloat16
     as the kernel does), auto timed three ways (``ms`` host-paced,
     ``device_ms`` from a replayed graph, ``host_us`` to enqueue) beside its

@@ -53,9 +53,7 @@ def test_highest_plan_at_the_instance_edges(p):
     split and no split empty, the stage within the buffer of the instance
     the C entry picks, and at least two partial blocks per SM wherever
     the centers allow a split (short splits, at most _SHORT_MAX_SPLIT,
-    up to _SHORT_MAX_CENTERS centers); folded (at most
-    ``_FOLD_MAX_CENTERS`` centers, p <= 23: the staged instances), a
-    cluster of at most ``_FOLD_MAX_SPLIT`` splits and only the flags."""
+    up to _SHORT_MAX_CENTERS centers)."""
     max_ks, cap_f4_per_ks = _source_constants()
     for n in SIZES:
         for m in SIZES:
@@ -67,15 +65,10 @@ def test_highest_plan_at_the_instance_edges(p):
                 kreg = -(-plan.ks // 8)
                 if kreg <= max_ks:
                     assert plan.stage_floats // 4 <= cap_f4_per_ks * kreg
-                assert plan.folded == (
-                    m <= kernels._FOLD_MAX_CENTERS and p <= 23)
-                if plan.folded:
-                    sizes = (0, 0, 0, 0, 0, plan.q_blocks * plan.n_split)
-                else:
-                    sizes = (plan.n_stages * plan.stage_floats,
-                             plan.prologue_blocks, plan.n_split * n,
-                             plan.n_split * n if online else 0,
-                             plan.q_blocks, 1)
+                sizes = (plan.n_stages * plan.stage_floats,
+                         plan.prologue_blocks, plan.n_split * n,
+                         plan.n_split * n if online else 0,
+                         plan.q_blocks, 1)
                 ends = [o + s for o, s in zip(plan.offsets, sizes)]
                 assert all(o % 4 == 0 for o in plan.offsets)
                 assert all(e <= o for e, o in zip(ends, plan.offsets[1:]))
@@ -86,7 +79,7 @@ def test_highest_plan_at_the_instance_edges(p):
                     assert len(r) > 0
                     seen[r.start:r.stop] += 1
                 assert (seen == 1).all()
-                if plan.folded or m <= kernels._SHORT_MAX_CENTERS:
+                if m <= kernels._SHORT_MAX_CENTERS:
                     assert plan.n_split <= kernels._SHORT_MAX_SPLIT
                     assert plan.n_split == min(
                         kernels._SHORT_MAX_SPLIT, plan.n_stages,
@@ -94,9 +87,7 @@ def test_highest_plan_at_the_instance_edges(p):
                 elif n >= 2048 and m >= 2048:
                     assert plan.q_blocks * plan.n_split >= 2 * SMS
                 high = kernels.launch_plan(n, m, p, SMS, online)
-                assert plan[1:4] == high[1:4]
-                if plan.folded == high.folded:
-                    assert plan[4:6] == high[4:6]
+                assert plan[1:6] == high[1:6]
 
 
 def _micro_tile(warp, lane):

@@ -191,8 +191,8 @@ def test_kernel_hostile_coordinates_match_float64(cuda, precision):
 
 @pytest.mark.parametrize("precision", kernels.PRECISIONS)
 def test_kernel_auto_makes_no_host_sync(cuda, precision):
-    """No mode syncs the host: the dengue keep (2,048^2 x 16), folded or
-    not, and 2,048 x 16,448 x 16 (the large-keep plan)."""
+    """No mode syncs the host: the dengue keep (2,048^2 x 16, short
+    splits) and 2,048 x 16,448 x 16 (the large-keep plan)."""
     a, b, lw = _scaled(2048, 2048, 16, 4, cuda)
     # build and load outside
     kernels.mixture_logsumexp(a, b, lw, precision=precision)
@@ -335,6 +335,27 @@ def test_highest_refuses_a_stage_of_the_old_width(cuda, monkeypatch):
         _clear_plans()
 
 
+@pytest.mark.parametrize("precision", kernels.PRECISIONS)
+def test_c_entry_refuses_a_plan_without_a_prologue(cuda, monkeypatch,
+                                                   precision):
+    """Every call starts with the prologue: a plan of ``prologue_blocks``
+    0 is refused with cudaErrorInvalidValue, and nothing is launched."""
+    a, b, lw = _scaled(205, 205, 2, 1, cuda)
+    kernels.mixture_logsumexp(a, b, lw, precision=precision)   # load
+    real = kernels.launch_plan
+    monkeypatch.setattr(kernels, "launch_plan", lambda *x, **k: real(
+        *x, **k)._replace(prologue_blocks=0))
+    kernels._call_of.cache_clear()
+    before = kernels.kernel_launches()
+    try:
+        with pytest.raises(RuntimeError, match=r"cudaError 1 "):
+            kernels.mixture_logsumexp(a, b, lw, mode="auto",
+                                      precision=precision)
+    finally:
+        kernels._call_of.cache_clear()
+    assert kernels.kernel_launches() == before
+
+
 def _clear_plans():
     """Forget every cached plan and call (after a plan constant is
     patched)."""
@@ -353,8 +374,8 @@ SHIPPED_KEEPS = ((102, 102, 2), (205, 205, 2), (410, 410, 3), (410, 410, 4),
 
 @pytest.mark.parametrize("precision", kernels.PRECISIONS)
 def test_kernel_at_the_shipped_keeps(cuda, precision):
-    """At every shipped keep (folded up to ``_FOLD_MAX_CENTERS``, short
-    splits above): each mode within 2e-4 nats
+    """At every shipped keep (all in short splits): each mode within 2e-4
+    nats
     of the scheme's plain version, with weights at the -1e30 sentinel and
     at -inf beside live ones; a far query row whose static sum underflows
     (-inf in static, as JAX returns it) makes auto rerun online: auto
@@ -400,23 +421,21 @@ def _kernel_names(prof):
 
 
 @pytest.mark.parametrize("precision", kernels.PRECISIONS)
-def test_profiler_counts_one_launch_a_pass_when_folded(cuda, precision):
-    """torch.profiler on the card: at the shipped keeps up to
-    ``_FOLD_MAX_CENTERS`` (205^2 x 2, 410^2 x 3) a static or online call is
-    one kernel and an auto call two (no prologue_kernel); above it
-    (2,048^2 x 16 and 4,096^2 x 6 with short splits; 256 x 16,448 x 6 with
-    the large-keep plan) the prologue, then one partial kernel a pass.
-    ``launches_per_call`` (the plan) and ``kernel_launches`` (the C
-    entry's count) say the same."""
+def test_profiler_counts_the_plans_launches_at_the_shipped_keeps(
+        cuda, precision):
+    """torch.profiler on the card: at the shipped keeps (205^2 x 2,
+    410^2 x 3, 2,048^2 x 16, short splits), at 4,096^2 x 6 and at
+    256 x 16,448 x 6 (the large-keep plan) a call is the prologue, then
+    one partial kernel a pass. ``launches_per_call`` (the plan) and
+    ``kernel_launches`` (the C entry's count) say the same."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]):   # warm the tracer up
         kernels.mixture_logsumexp(*_scaled(205, 205, 2, 8, cuda))
         torch.cuda.synchronize()
-    cases = [((205, 205, 2), True), ((410, 410, 3), True),
-             ((2048, 2048, 16), False), ((4096, 4096, 6), False),
-             ((256, kernels._SHORT_MAX_CENTERS + 64, 6), False)]
-    for (n, m, p), folded in cases:
+    for n, m, p in ((205, 205, 2), (410, 410, 3), (2048, 2048, 16),
+                    (4096, 4096, 6), (256, kernels._SHORT_MAX_CENTERS + 64,
+                                      6)):
         a, b, lw = _scaled(n, m, p, 8, cuda)
         for mode in ("static", "online", "auto"):
             passes = 2 if mode == "auto" else 1
@@ -432,43 +451,15 @@ def test_profiler_counts_one_launch_a_pass_when_folded(cuda, precision):
                     torch.cuda.synchronize()
                 counted = kernels.kernel_launches() - before
                 names = _kernel_names(prof)
-                if sum(names.values()) == 3 * (passes + (not folded)):
+                if sum(names.values()) == 3 * (passes + 1):
                     break
+            assert kernels.launches_per_call(
+                n, m, p, mode, precision=precision) == passes + 1
+            assert counted == 3 * (passes + 1), (n, m, p, mode)
             prologues = sum(v for k, v in names.items() if "prologue" in k)
             partials = sum(v for k, v in names.items() if "partial" in k)
             assert partials == 3 * passes, (n, m, p, mode, names)
-            assert prologues == (0 if folded else 3), (n, m, p, mode, names)
-            assert kernels.launches_per_call(
-                n, m, p, mode, precision=precision) == passes + (not folded)
-            assert counted == 3 * (passes + (not folded)), (n, m, p, mode)
-
-
-@pytest.mark.parametrize("precision", kernels.PRECISIONS)
-def test_folded_equals_unfolded_at_the_same_split(cuda, precision):
-    """With the folded plan's own split forced on the unfolded form (the
-    prologue, global b_aug stages, arrival counters), every mode gives the
-    same bits: the folded stages, max_lw and merge are the prologue's and
-    merge_splits' arithmetic."""
-    for n, m, p in ((205, 205, 2), (410, 410, 4), (256, 128, 2),
-                    (2085, 500, 13), (10_000, 512, 6), (1, 65, 7)):
-        a, b, lw = _scaled(n, m, p, 21, cuda)
-        plan = kernels.launch_plan(n, m, p, 132, True, precision=precision)
-        assert plan.folded
-        folded = {mode: kernels.mixture_logsumexp(a, b, lw, mode=mode,
-                                                  precision=precision)
-                  for mode in ("static", "online", "auto")}
-        keep = kernels._FOLD_MAX_CENTERS
-        kernels._FOLD_MAX_CENTERS = 0
-        _clear_plans()
-        try:
-            for mode, got in folded.items():
-                un = kernels.mixture_logsumexp(a, b, lw, mode=mode,
-                                               precision=precision,
-                                               n_split=plan.n_split)
-                assert torch.equal(got, un), (n, m, p, mode)
-        finally:
-            kernels._FOLD_MAX_CENTERS = keep
-            _clear_plans()
+            assert prologues == 3, (n, m, p, mode, names)
 
 
 GRAPH_CALLS = (((410, 410, 3), "auto"), ((2048, 2048, 16), "static"),
@@ -477,10 +468,11 @@ GRAPH_CALLS = (((410, 410, 3), "auto"), ((2048, 2048, 16), "static"),
 
 @pytest.mark.parametrize("precision", kernels.PRECISIONS)
 def test_graph_of_calls_replayed_equals_eager(cuda, precision):
-    """Four folded calls (every mode) captured into one CUDA graph and
-    replayed 50 times on new inputs copied into the captured ones: each
-    replay equals the eager calls on those inputs, bit for bit (nothing
-    left behind by one replay, no counter to reset)."""
+    """Four calls at the shipped keeps (every mode) captured into one CUDA
+    graph and replayed 50 times on new inputs copied into the captured
+    ones: each replay equals the eager calls on those inputs, bit for bit
+    (nothing left behind by one replay: each call's prologue, inside the
+    graph, resets its arrival counters and its flag)."""
     static = [list(_scaled(*shape, 1, cuda)) for shape, _ in GRAPH_CALLS]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -508,9 +500,9 @@ def test_graph_of_calls_replayed_equals_eager(cuda, precision):
 
 @pytest.mark.parametrize("precision", kernels.PRECISIONS)
 def test_two_streams_at_once_equal_one_after_the_other(cuda, precision):
-    """Auto calls in flight on three streams at once (folded, short
-    splits, the large-keep plan) equal the same calls run one after the
-    other."""
+    """Auto calls in flight on three streams at once (short splits at
+    410 and 4,096 centers, the large-keep plan) equal the same calls run
+    one after the other."""
     shapes = ((410, 410, 3), (4096, 4096, 6),
               (256, kernels._SHORT_MAX_CENTERS + 64, 6))
     xs = [_scaled(*shape, 6, cuda) for shape in shapes]

@@ -319,9 +319,7 @@ def test_launch_plan_covers_every_center_once(n, m, p, sms):
     split, no split is empty, K = p+2 is padded to a multiple of 8 by less
     than 8, and the workspace segments (b_aug fragments, prologue maxima,
     partial sums and maxima, arrival counters, flag) are 16-byte aligned
-    and disjoint; a folded plan (at most ``_FOLD_MAX_CENTERS`` centers)
-    has no prologue, at most one cluster of splits, and only the flags
-    of auto's rerun, one a (query block, split)."""
+    and disjoint, and the prologue blocks cover every stage."""
     for online in (False, True):
         plan = kernels.launch_plan(n, m, p, sms, online)
         assert plan.k_pad % 8 == 0 and 0 <= plan.k_pad - (p + 2) < 8
@@ -334,18 +332,11 @@ def test_launch_plan_covers_every_center_once(n, m, p, sms):
             seen[r.start:r.stop] += 1
         assert (seen == 1).all()
         assert plan.n_split * plan.stages_per_split >= plan.n_stages
-        assert plan.folded == (m <= kernels._FOLD_MAX_CENTERS
-                               and p <= kernels._FOLD_MAX_P["high"])
-        if plan.folded:
-            assert plan.prologue_blocks == 0
-            assert plan.n_split <= kernels._FOLD_MAX_SPLIT
-            sizes = (0, 0, 0, 0, 0, plan.q_blocks * plan.n_split)
-        else:
-            assert plan.prologue_blocks * kernels._PROLOGUE_THREADS >= (
-                plan.n_stages * kernels._STAGE_CENTERS)
-            sizes = (plan.n_stages * kernels._STAGE_CENTERS * plan.ks * 16,
-                     plan.prologue_blocks, plan.n_split * n,
-                     plan.n_split * n if online else 0, plan.q_blocks, 1)
+        assert plan.prologue_blocks * kernels._PROLOGUE_THREADS >= (
+            plan.n_stages * kernels._STAGE_CENTERS)
+        sizes = (plan.n_stages * kernels._STAGE_CENTERS * plan.ks * 16,
+                 plan.prologue_blocks, plan.n_split * n,
+                 plan.n_split * n if online else 0, plan.q_blocks, 1)
         ends = [o + s for o, s in zip(plan.offsets, sizes)]
         assert all(o % 4 == 0 for o in plan.offsets)
         assert all(e <= o for e, o in zip(ends, plan.offsets[1:]))

@@ -202,9 +202,7 @@ def test_launch_plan_per_scheme(prec, k_step, nbytes, width):
     16 (BF16, one bfloat16), or p+1 rows unpadded (FFMA, one float: b and
     cb, its accumulators start at ca + cb); a stage is whole float4s (the
     C entry takes its size in float4s); the first workspace segment holds
-    every stage, and the other segments follow it as for "high"; a
-    folded plan (at most _FOLD_MAX_CENTERS centers) builds its stages in
-    shared memory and holds only the flags, as "high"'s."""
+    every stage, and the other segments follow it as for "high"."""
     for n, m, p in ((2048, 2048, 16), (50_000, 50_000, 6), (37, 1000, 1),
                     (4096, 4096, 80), (410, 410, 3)):
         plan = kernels.launch_plan(n, m, p, 132, True, precision=prec)
@@ -213,17 +211,12 @@ def test_launch_plan_per_scheme(prec, k_step, nbytes, width):
         assert plan.k_pad == k_step * ks >= p + width
         assert 4 * plan.stage_floats == 64 * plan.k_pad * nbytes
         assert plan.stage_floats % 4 == 0
-        assert plan.folded == (m <= kernels._FOLD_MAX_CENTERS
-                               and p <= kernels._FOLD_MAX_P[prec])
-        if not plan.folded:
-            assert plan.offsets[1] >= plan.n_stages * plan.stage_floats
-            assert plan.offsets[1] - plan.n_stages * plan.stage_floats < 4
+        assert plan.offsets[1] >= plan.n_stages * plan.stage_floats
+        assert plan.offsets[1] - plan.n_stages * plan.stage_floats < 4
         high = kernels.launch_plan(n, m, p, 132, True)
-        assert plan[1:4] == high[1:4]
-        if plan.folded == high.folded:
-            assert plan[4:6] == high[4:6]
-            assert (plan.ws_floats - plan.offsets[1]
-                    == high.ws_floats - high.offsets[1])
+        assert plan[1:6] == high[1:6]
+        assert (plan.ws_floats - plan.offsets[1]
+                == high.ws_floats - high.offsets[1])
 
 
 @pytest.mark.parametrize("prec,fmas,issued", [

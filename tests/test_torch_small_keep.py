@@ -1,10 +1,10 @@
 """The weight kernel at the survivor keeps the main paths give it, on the
-CPU: the launch plan folds the call below ``_FOLD_MAX_CENTERS`` centers
-(no prologue, at most ``_FOLD_MAX_SPLIT`` splits a cluster, one launch a
-pass) and keeps the earlier plan above it; the plain version against the JAX
+CPU: the launch plan takes short splits up to ``_SHORT_MAX_CENTERS``
+centers (at most ``_SHORT_MAX_SPLIT`` splits, a prologue block a stage)
+and keeps the earlier plan above it; the plain version against the JAX
 package's Pallas wrapper in interpret mode at the shipped keeps.
 
-The folded kernel itself runs only on the card (tests/test_torch_gpu.py).
+The kernel itself runs only on the card (tests/test_torch_gpu.py).
 Tolerance: 2e-4 nats, the f32 kernel contract of
 tests/test_pallas_kernels.py, as tests/test_torch_precision.py holds the
 schemes to JAX's interpret mode."""
@@ -96,111 +96,74 @@ def _full_split(n, m, sms=SMS):
     return ns
 
 
+def _trimmed(plan, want):
+    """``want`` splits as the plan trims them: each split takes
+    ceil(n_stages / want) stages, and none is empty."""
+    return -(-plan.n_stages // -(-plan.n_stages // want))
+
+
 @pytest.mark.parametrize("prec", kernels.PRECISIONS)
 @pytest.mark.parametrize("n,m,p", SHIPPED_KEEPS)
 def test_plan_at_the_shipped_keeps(n, m, p, prec):
-    """At every shipped keep, in every scheme and mode: every center in
-    exactly one split, 16-byte aligned workspace offsets, and either the
-    folded call (up to ``_FOLD_MAX_CENTERS``, the keeps of 102-410: no
-    prologue, at most one cluster of ``_FOLD_MAX_SPLIT`` splits a query
-    block, only the flags of auto's rerun, one int32 a (query block,
-    split); one launch a pass) or short splits (up to ``_SHORT_MAX_CENTERS``, the
-    keeps of 2,048-10,000: the full rule capped at ``_SHORT_MAX_SPLIT``
-    splits, a prologue block a stage, the prologue and one launch a
-    pass)."""
-    folded = m <= kernels._FOLD_MAX_CENTERS
-    assert folded == (m <= 410)
+    """At every shipped keep (102-10,000 centers, all up to
+    ``_SHORT_MAX_CENTERS``), in every scheme and mode: every center in
+    exactly one split, 16-byte aligned workspace offsets, and short
+    splits: the full rule capped at ``_SHORT_MAX_SPLIT`` splits, a
+    prologue block a stage, the prologue and one launch a pass."""
+    assert m <= kernels._SHORT_MAX_CENTERS
     for online in (False, True):
         plan = kernels.launch_plan(n, m, p, SMS, online, precision=prec)
-        assert plan.folded == folded
         assert plan.n_split * plan.stages_per_split >= plan.n_stages
         assert _covers_each_center_once(plan, m)
         assert all(o % 4 == 0 for o in plan.offsets)
-        if folded:
-            assert plan.prologue_blocks == 0
-            assert 1 <= plan.n_split <= kernels._FOLD_MAX_SPLIT
-            flags = plan.q_blocks * plan.n_split
-            assert plan.offsets[-1] + flags <= plan.ws_floats
-            assert plan.ws_floats - flags < 4
-        else:
-            assert plan.prologue_blocks == plan.n_stages
-            want = min(_full_split(n, m), kernels._SHORT_MAX_SPLIT)
-            assert plan.n_split == -(-plan.n_stages
-                                     // -(-plan.n_stages // want))
+        assert plan.offsets[-1] < plan.ws_floats   # the rerun flag
+        assert plan.prologue_blocks == plan.n_stages
+        assert plan.n_split == _trimmed(
+            plan, min(_full_split(n, m), kernels._SHORT_MAX_SPLIT))
     assert [kernels.launches_per_call(n, m, p, mode, precision=prec)
-            for mode in ("static", "online", "auto")] == (
-        [1, 1, 2] if folded else [2, 2, 3])
+            for mode in ("static", "online", "auto")] == [2, 2, 3]
 
 
-def test_fold_threshold_and_the_plan_on_each_side():
-    """Folded up to ``_FOLD_MAX_CENTERS`` and not one center above, where
-    the plan is the unfolded rule with short splits (a prologue block a
-    stage, at most ``_SHORT_MAX_SPLIT`` splits) up to
-    ``_SHORT_MAX_CENTERS``, and the full rule above that (a prologue block
-    for 256 centers); wider than the instances that keep the query
-    operands on chip (``_FOLD_MAX_P``): not folded. An ``n_split`` asked
-    for folds as any other, at most one cluster of ``_FOLD_MAX_SPLIT``."""
-    edge = kernels._FOLD_MAX_CENTERS
-    assert -(-edge // 64) <= kernels._FOLD_MAX_SPLIT
-    for prec, pmax in kernels._FOLD_MAX_P.items():
-        at = kernels.launch_plan(2048, edge, 6, SMS, True, precision=prec)
-        above = kernels.launch_plan(2048, edge + 1, 6, SMS, True,
-                                    precision=prec)
-        assert at.folded and not above.folded
-        assert above.prologue_blocks * kernels._PROLOGUE_THREADS >= (
-            above.n_stages * kernels._STAGE_CENTERS)
-        assert above.n_split <= kernels._SHORT_MAX_SPLIT
-        short = kernels._SHORT_MAX_CENTERS
-        for m, cap in ((short, kernels._SHORT_MAX_SPLIT), (short + 64, None)):
-            plan = kernels.launch_plan(2048, m, 6, SMS, False,
-                                       precision=prec)
-            want = _full_split(2048, m)
-            if cap is not None:
-                want = min(want, cap)
-            assert plan.n_split == -(-plan.n_stages
-                                     // -(-plan.n_stages // want))
-            assert plan.prologue_blocks == (
-                plan.n_stages if cap else -(-plan.n_stages // 4))
-        assert kernels.launch_plan(410, 410, pmax, SMS, False,
-                                   precision=prec).folded
-        assert not kernels.launch_plan(410, 410, pmax + 1, SMS, False,
-                                       precision=prec).folded
-        for ask in (1, 3, kernels._FOLD_MAX_SPLIT):
-            plan = kernels.launch_plan(256, edge, 2, SMS, True,
-                                       n_split=ask, precision=prec)
-            assert plan.folded
-            assert plan.n_split == -(-plan.n_stages
-                                     // -(-plan.n_stages // ask))
-        for keep in (102, 205, 256, 410):
-            assert kernels.launch_plan(keep, keep, 2, SMS, True,
-                                       precision=prec).folded
-        assert kernels.launches_per_call(
-            2048, edge + 1, 6, "auto", precision=prec) == 3
-        assert kernels.launches_per_call(
-            2048, edge + 1, 6, "static", precision=prec) == 2
-    # the folded split keeps the aim of blocks per SM, capped at a cluster
-    wide = kernels.launch_plan(200_000, 500, 6, SMS, False)
-    assert wide.folded and wide.n_split == -(-32 * SMS // wide.q_blocks)
-    assert kernels.launch_plan(205, 205, 2, SMS, False).n_split == 4
-
-
-def test_fold_limits_come_from_the_kernel_source(tmp_path):
-    """The plan's fold limits are the source's: one cluster of kMaxCluster
-    splits, and for each scheme the widest stage the instances that keep
-    the query operands on chip build (max_reg_ks k-steps of 8 or 16
-    columns, "highest"'s groups of 8 rows, less the added columns); an
-    edited source moves them."""
-    assert kernels._FOLD_MAX_SPLIT == 8
-    assert kernels._FOLD_MAX_P == {"high": 30, "default": 30, "highest": 23}
-    src = (kernels.CSRC / "mixture_logsumexp.cu").read_text()
-    edited = tmp_path / "mixture_logsumexp.cu"
-    edited.write_text(
-        src.replace("constexpr int kMaxCluster = 8;",
-                    "constexpr int kMaxCluster = 16;")
-        .replace("return scheme == kHigh ? 4 : scheme == kBf16 ? 2 : 3;",
-                 "return scheme == kHigh ? 2 : scheme == kBf16 ? 1 : 4;"))
-    assert kernels._source_limits(edited) == (
-        16, {"high": 14, "default": 14, "highest": 31})
+@pytest.mark.parametrize("prec", kernels.PRECISIONS)
+def test_short_split_threshold_and_the_plan_on_each_side(prec):
+    """Short splits up to ``_SHORT_MAX_CENTERS`` and not one stage above:
+    at 16,384 centers the full rule capped at ``_SHORT_MAX_SPLIT`` splits
+    and a prologue block a stage, at 16,448 the full rule and a prologue
+    block for 256 centers. 512 and 513 centers take one rule, at any
+    width, and so do the small keeps on a wide query set. An ``n_split``
+    asked for is kept, past the cap too, trimmed so that no split is
+    empty. On both sides a call is the prologue and one partial kernel a
+    pass."""
+    short = kernels._SHORT_MAX_CENTERS
+    for m, cap in ((short, kernels._SHORT_MAX_SPLIT), (short + 64, None)):
+        plan = kernels.launch_plan(2048, m, 6, SMS, False, precision=prec)
+        want = _full_split(2048, m)
+        assert plan.n_split == _trimmed(plan, min(want, cap or want))
+        assert plan.prologue_blocks == (
+            plan.n_stages if cap else -(-plan.n_stages // 4))
+        assert plan.prologue_blocks * kernels._PROLOGUE_THREADS >= (
+            plan.n_stages * kernels._STAGE_CENTERS)
+    for m in (512, 513):
+        for n, p in ((256, 2), (2048, 6), (410, 30), (410, 31),
+                     (200_000, 6)):
+            plan = kernels.launch_plan(n, m, p, SMS, True, precision=prec)
+            assert plan.prologue_blocks == plan.n_stages == -(-m // 64)
+            assert plan.n_split == _trimmed(
+                plan, min(_full_split(n, m), kernels._SHORT_MAX_SPLIT))
+            assert _covers_each_center_once(plan, m)
+    for ask in (1, 3, 8):
+        plan = kernels.launch_plan(256, 512, 2, SMS, True, n_split=ask,
+                                   precision=prec)
+        assert plan.n_split == _trimmed(plan, ask)
+        assert plan.prologue_blocks == plan.n_stages
+    asked = kernels.launch_plan(2085, 5000, 6, SMS, True, n_split=79,
+                                precision=prec)
+    assert asked.n_split == 79 > kernels._SHORT_MAX_SPLIT
+    assert kernels.launch_plan(205, 205, 2, SMS, False,
+                               precision=prec).n_split == 4
+    for m in (512, 513, short, short + 64):
+        assert [kernels.launches_per_call(2048, m, 6, mode, precision=prec)
+                for mode in ("static", "online", "auto")] == [2, 2, 3]
 
 
 @pytest.mark.parametrize("shape,prec", sorted(EARLIER_PLANS))
@@ -211,7 +174,6 @@ def test_plan_above_the_thresholds_is_the_earlier_one(shape, prec):
     for online, want in zip((False, True), EARLIER_PLANS[(shape, prec)]):
         plan = kernels.launch_plan(*shape, SMS, online, precision=prec)
         assert tuple(plan) == want
-        assert not plan.folded
     assert kernels.launches_per_call(*shape, "auto", precision=prec) == 3
 
 

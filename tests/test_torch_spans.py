@@ -18,7 +18,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from abcsmc_tpu_torch import AbcSmc, spans
 from abcsmc_tpu_torch.models.simulators import make_linear_gaussian_simulator
-from abcsmc_tpu_torch.ops import _build, kernels
+from abcsmc_tpu_torch.ops import _build, kernels, sim_kernels
 
 ROOT = Path(__file__).resolve().parent.parent
 NPAR, NMET, N, KEEP, SETS = 3, 5, 400, 40, 3
@@ -210,8 +210,8 @@ def test_host_span_adds_its_seconds_to_its_field():
 
 def test_launch_counter_counts_replays_not_captures(monkeypatch):
     """The graph accounting of ``kernel_launches`` against a stand-in for
-    the C entry's count: what a capture records comes off every count, and
-    each replay adds what the graph holds."""
+    the C entry's count: what a capture records comes off every count, the
+    sir kernel's too, and each replay adds what the graph holds."""
     c_count = [100]
     monkeypatch.setattr(kernels, "_launch_count", lambda: lambda: c_count[0])
     monkeypatch.setitem(_build._loaded, "mixture_logsumexp", object())
@@ -219,19 +219,23 @@ def test_launch_counter_counts_replays_not_captures(monkeypatch):
     monkeypatch.setattr(kernels.mixture_logsumexp, "launches", 7)
     monkeypatch.setattr(kernels.mixture_logsumexp, "launches_by_precision",
                         dict.fromkeys(kernels.PRECISIONS, 0))
+    monkeypatch.setattr(sim_kernels.sir_loop, "launches", 5)
     before = kernels.kernel_launches()
     with kernels.graph_capture_counts() as held:
-        # one auto call of an unfolded plan recorded: prologue + 2 passes
+        # one auto call recorded: prologue + 2 passes; one sir loop
         c_count[0] += 3
         kernels.count_launches(2, "high")
-    assert held == {"partial": 2, "kernels": 3}
+        sim_kernels.sir_loop.launches += 1
+    assert held == {"partial": 2, "kernels": 3, "sir_loop": 1}
     assert kernels.kernel_launches() == before
     assert kernels.mixture_logsumexp.launches == 7
     assert kernels.mixture_logsumexp.launches_by_precision["high"] == 0
+    assert sim_kernels.sir_loop.launches == 5
     for rep in range(1, 4):
-        kernels.count_launches(held["partial"], "high", held["kernels"])
+        kernels.count_replay(held, "high")
         assert kernels.kernel_launches() == before + 3 * rep
         assert kernels.mixture_logsumexp.launches == 7 + 2 * rep
+        assert sim_kernels.sir_loop.launches == 5 + rep
     # eager launches after it still count as the C entry counts them
     c_count[0] += 2
     assert kernels.kernel_launches() == before + 11
