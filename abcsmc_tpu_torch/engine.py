@@ -80,7 +80,7 @@ def _run_phases(first_set: int, route: str | None) -> dict:
     return {"op": "run_device_phases", "sets": 0, "first_set": first_set,
             "route": route, "dispatch_s": 0.0, "mirror_s": 0.0,
             "fetch_s": 0.0, "fetch_bytes": 0, "store_s": 0.0,
-            "store_rows": 0, "report_s": 0.0}
+            "store_rows": 0, "store_copied_bytes": 0, "report_s": 0.0}
 
 
 def _host(x) -> np.ndarray:
@@ -174,7 +174,9 @@ class AbcSmc:
         #: "abcsmc.mirror" in "mirror_s", inside it "abcsmc.fetch" in
         #: "fetch_s" with the bytes copied from the device in "fetch_bytes",
         #: "abcsmc.store.<method>" in "store_s" with the rows written in
-        #: "store_rows", "abcsmc.report.filtering" and, after the mirror,
+        #: "store_rows" and the rise of the memory store's ``copied_bytes``
+        #: in "store_copied_bytes", "abcsmc.report.filtering" and, after
+        #: the mirror,
         #: "abcsmc.report.convergence" in "report_s"; a split-propose set is
         #: fetched inside the dispatch); one "simulate_device" entry per set
         #: from the projection route
@@ -1156,7 +1158,7 @@ class AbcSmc:
         only the store writer writes and process 0 reports; every process
         fills its in-memory state. No collective runs in here. The run's
         ``phases`` (:func:`_run_phases`; None: a new one) take the spans'
-        seconds and the rows written."""
+        seconds, the rows written and the bytes the store copied."""
         cfg = self.config
         if phases is None:
             phases = _run_phases(t0, None)
@@ -1168,6 +1170,7 @@ class AbcSmc:
                     [m.short_name for m in self.metrics],
                     self.transform.has_any,
                 )
+        copied = getattr(self.storage, "copied_bytes", 0)
         for i, host in enumerate(fetched):
             t = t0 + i
             n_t = cfg.smc_size_at(t)
@@ -1239,6 +1242,8 @@ class AbcSmc:
                                 "abcsmc.report.filtering"):
                     reports.filtering_report(self, t, pars_np[surv],
                                              mets_np[surv])
+        phases["store_copied_bytes"] += (
+            getattr(self.storage, "copied_bytes", 0) - copied)
 
     # ---------------------------------------------------------- projection
     def _run_device_projection(self, seed: int, verbose: bool):

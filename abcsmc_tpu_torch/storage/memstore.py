@@ -5,10 +5,23 @@ ordering, guarded writeback) but held as numpy columns, so a fully on-device
 run never touches disk. ``snapshot_to`` provides checkpointing by dumping into
 any other Storage (e.g. the SQLite store for durability).
 
-Each ``insert_generation`` call appends one block of whole columns. Serials
-are the row numbers, contiguous within a block and across blocks, so a
-serial's block is found by a binary search over the blocks' first serials,
-and no operation loops over rows in Python. A block is never copied again.
+Each insert appends one block of whole columns. Serials are the row
+numbers, contiguous within a block and across blocks, so a serial's block
+is found by a binary search over the blocks' first serials, and no
+operation loops over rows in Python. A block is never copied again.
+
+``insert_generation`` copies the columns it is given. The mirror's
+``insert_generation_complete`` keeps them: params, upars, seeds, posterior
+ranks and metrics become the block's own columns, unless a column is not
+already a C-contiguous array of the store's dtype (float64, uint64, int64),
+when it is copied. The store marks the kept params, upars, seeds and
+metrics read-only, since the caller holds the same arrays and the store
+never writes into them, so a later write by either raises instead of
+making the two differ. It keeps the ranks writable, because
+``write_posterior_ranks`` writes into them (the engine keeps no reference
+to the ranks it hands over). Start time, duration, status and attempts are
+always the store's own, since claims write them. ``copied_bytes`` counts
+the bytes copied where a column was not kept.
 """
 
 from __future__ import annotations
@@ -25,8 +38,9 @@ _R, _D = 1, 2
 
 
 class _Block:
-    """The rows of one ``insert_generation`` call: serials ``start`` to
-    ``start + n - 1``, all of set ``set_num``."""
+    """The rows of one insert: serials ``start`` to ``start + n - 1``, all
+    of set ``set_num``. The first five columns may be a caller's (the
+    module docstring); the last four are always the store's own."""
 
     def __init__(self, start, set_num, params, upars, seeds, posterior,
                  n_met, now):
@@ -35,7 +49,7 @@ class _Block:
         self.params = params            # [n, P] float64
         self.upars = upars              # [n, P] float64; params when absent
         self.seeds = seeds              # [n] uint64
-        self.posterior = posterior      # [n] int64
+        self.posterior = posterior      # [n] int64, writable
         # [n, M] float64; None (every row NaN) until a write, so that a
         # write of the whole block fills its memory once
         self.metrics = None
@@ -89,6 +103,11 @@ class MemoryStorage(Storage):
         self._blocks: list[_Block] = []
         self._starts = np.zeros(0, np.int64)   # each block's first serial
         self._rows = 0
+        #: bytes of the callers' columns copied into columns of the store's
+        #: own: every column ``insert_generation`` takes, those the keeping
+        #: calls could not keep, and a kept metrics column a later write
+        #: has to change
+        self.copied_bytes = 0
 
     # -- lifecycle -------------------------------------------------------------
     def exists(self) -> bool:
@@ -107,28 +126,74 @@ class MemoryStorage(Storage):
         self, set_num, params, seeds, upars=None, posterior_ranks=None,
         if_empty=False,
     ):
-        start = self._rows
-        if if_empty and start != 0:
+        if if_empty and self._rows != 0:
             # conditional repair insert lost the (in-process) race
             return None
-        params = np.array(params, np.float64)
-        n = params.shape[0]
+        return self._append(set_num, params, seeds, upars, posterior_ranks,
+                            keep=False)
+
+    def insert_generation_complete(
+        self, set_num, params, seeds, metrics, upars=None,
+        posterior_ranks=None,
+    ):
+        """Bulk-insert an already-simulated set (status 'D') as one block
+        that keeps the caller's params, upars, seeds and ranks, the first
+        three read-only (the module docstring says why). The metrics go
+        through ``write_results``, whose write of a whole new block keeps
+        them too, read-only. A column shorter than ``params`` raises
+        IndexError before anything is written."""
+        serials = self._append(set_num, params, seeds, upars,
+                               posterior_ranks, keep=True, metrics=metrics)
+        n = len(serials)
+        # one value a column, broadcast: the block's own columns take them
+        self.write_results(serials, metrics,
+                           np.broadcast_to(np.int64(time.time()), n),
+                           np.broadcast_to(0.0, n))
+        return serials
+
+    def _append(self, set_num, params, seeds, upars, posterior_ranks, keep,
+                metrics=None):
+        """Append one block of 'Q' rows, its columns by ``_column``'s rule;
+        returns its serials. ``metrics`` is only checked for length."""
+        start = self._rows
+        n = len(params)
         for name, col in (("seeds", seeds), ("upars", upars),
-                          ("posterior_ranks", posterior_ranks)):
+                          ("posterior_ranks", posterior_ranks),
+                          ("metrics", metrics)):
             if col is not None and len(col) < n:
                 raise IndexError(f"{name} has {len(col)} rows, params {n}")
         if n:
+            params = self._column(params, n, np.float64, keep)
             self._blocks.append(_Block(
                 start, int(set_num), params,
-                params if upars is None else np.array(upars, np.float64)[:n],
-                np.array(seeds[:n], np.uint64),
+                params if upars is None
+                else self._column(upars, n, np.float64, keep),
+                self._column(seeds, n, np.uint64, keep),
                 np.full(n, -1, np.int64) if posterior_ranks is None
-                else np.array(posterior_ranks[:n], np.int64),
+                else self._column(posterior_ranks, n, np.int64, keep,
+                                  writable=True),
                 len(self.met_names), int(time.time()),
             ))
             self._starts = np.append(self._starts, start)
             self._rows += n
         return np.arange(start, start + n, dtype=np.int64)
+
+    def _column(self, x, n, dtype, keep, writable=False):
+        """Rows ``:n`` of the caller's column ``x`` as a C-contiguous
+        ``dtype`` column of a block. With ``keep`` that is ``x`` itself
+        where it already is one: made read-only, or with ``writable`` left
+        writable (a read-only one is copied). Else a copy, whose bytes
+        ``copied_bytes`` counts."""
+        src = x if len(x) == n else x[:n]
+        col = (np.ascontiguousarray(src, dtype) if keep
+               else np.array(src, dtype))
+        if col is src and not writable:
+            col.setflags(write=False)
+        elif col is src and not col.flags.writeable:
+            col = col.copy()
+        if col is not src:
+            self.copied_bytes += col.nbytes
+        return col
 
     # -- row access -----------------------------------------------------------
     def _parts(self, rows):
@@ -250,11 +315,23 @@ class MemoryStorage(Storage):
         return self._claimed(np.flatnonzero(self._status() <= _R))
 
     def write_results(self, serials, metrics, start_times, durations):
+        """Guarded writeback. A write of a whole block, its serials in
+        order, before the block has metrics and while every row is open,
+        keeps ``metrics`` as the block's column by ``_column``'s rule
+        (read-only); every other write copies the open rows into the
+        store's own column, first a copy of a kept one."""
         serials = np.asarray(serials, np.int64)
-        metrics = np.asarray(metrics, np.float64)
         start_times = np.asarray(start_times, np.int64)
         durations = np.asarray(durations, np.float64)
         k = min(len(serials), len(metrics), len(start_times), len(durations))
+        b = self._whole_block(serials[:k], np.shape(metrics)[1:])
+        if b is not None:
+            b.metrics = self._column(metrics, k, np.float64, keep=True)
+            b.start_time[:] = start_times[:k]
+            b.duration[:] = durations[:k]
+            b.status.fill(_D)
+            return b.n
+        metrics = np.asarray(metrics, np.float64)
         # the first writeback of a serial wins; later ones find it 'D'
         keep = _one_of_each(serials[:k])
         serials, metrics = serials[keep], metrics[keep]
@@ -262,15 +339,20 @@ class MemoryStorage(Storage):
         written = 0
         for b, where, local in self._parts(serials):
             open_ = b.status[local] != _D      # the guard: Q, R or P
-            if not open_.all():
+            n_open = int(open_.sum())
+            if not n_open:
+                continue
+            if n_open < len(open_):
                 where = np.arange(len(serials))[where][open_]
                 local = np.arange(b.n)[local][open_]
-            n_open = int(open_.sum())
             col = b.metrics
             if col is None:     # kept only once the write has succeeded
                 # the serials are distinct, so n_open == b.n is every row
                 col = (np.empty((b.n, b.n_met)) if n_open == b.n
                        else b.metrics_or_nan())
+            elif not col.flags.writeable:   # kept from a caller
+                col = col.copy()
+                self.copied_bytes += col.nbytes
             col[local] = metrics[where]
             b.metrics = col
             b.start_time[local] = start_times[where]
@@ -278,6 +360,23 @@ class MemoryStorage(Storage):
             b.status[local] = _D
             written += n_open
         return written
+
+    def _whole_block(self, serials, row_shape):
+        """The block whose serials ``serials`` are, all and in order, where
+        that block has no metrics yet, every row is open and metric rows
+        of ``row_shape`` fit it; else None."""
+        if not len(serials):
+            return None
+        j = int(np.searchsorted(self._starts, serials[0], side="right")) - 1
+        if j < 0:
+            return None
+        b = self._blocks[j]
+        if (b.start != serials[0] or b.n != len(serials)
+                or b.metrics is not None or row_shape != (b.n_met,)
+                or not isinstance(_run(serials), slice)
+                or bool((b.status == _D).any())):
+            return None
+        return b
 
     # -- durability -----------------------------------------------------------------
     def snapshot_to(self, other: Storage):

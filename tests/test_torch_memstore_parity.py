@@ -196,9 +196,57 @@ def empty_store(st):
             st.is_empty()]
 
 
+def complete_engine_shaped(st):
+    """The mirror's columns as the engine hands them over (float64 params
+    and metrics, uint64 seeds, int64 ranks, all C-contiguous: the port's
+    store keeps them), then the writes and claims that come after."""
+    st.create(PARS, METS, False)
+    ranks = np.full(6, -1, np.int64)
+    ranks[[4, 1, 2]] = [0, 1, 2]
+    out = [st.insert_generation_complete(0, _params(6), _seeds(6),
+                                         _metrics(6), None, ranks),
+           # every row is 'D': nothing is written, the metrics stay
+           st.write_results(np.arange(6), _metrics(6, 1), np.full(6, 3),
+                            np.zeros(6)),
+           st.read_generations()]
+    ranks = np.full(5, -1, np.int64)
+    ranks[[3, 0]] = [0, 1]
+    out.append(st.insert_generation_complete(1, _params(5, 1),
+                                             _seeds(5, 1), _metrics(5, 1),
+                                             None, ranks))
+    st.write_posterior_ranks([0, 3, 7], [3, 4, 2])
+    out += [st.claim_jobs(serial_req=2), st.claim_jobs(posterior_req=1),
+            st.claim_jobs(posterior_req=2), st.read_runnable(),
+            # the claimed rows are open again and take these metrics
+            st.write_results([2, 6, 7, 9], _metrics(4, 2), [5, 5, 5, 5],
+                             [0.5, 0.5, 0.5, 0.5]),
+            st.claim_jobs(n=-1), st.read_generations()]
+    return out
+
+
+def complete_columns_copied(st):
+    """Columns the port's store cannot keep (float32, int64 seeds, a
+    strided view, lists) are copied and read the same."""
+    st.create(PARS, METS, True)
+    wide = np.random.default_rng(30).random((5, 2 * len(METS)))
+    params = _params(5).astype(np.float32)
+    out = [st.insert_generation_complete(
+               0, params, _seeds(5).astype(np.int64), wide[:, ::2],
+               np.exp(params).tolist(), [1, -1, 0, -1, -1]),
+           st.insert_generation_complete(
+               1, _params(3, 1).tolist(), [2**63 + 5, 1, 2],
+               _metrics(3, 1).tolist()),
+           st.read_generations(), st.claim_jobs(serial_req=6),
+           st.claim_jobs(posterior_req=0), st.read_runnable(),
+           st.write_results([6, 0], _metrics(2, 2), [4, 4], [0.4, 0.4]),
+           st.read_generations()]
+    return out
+
+
 CASES = [bulk_complete, host_batches_reclaim, guard_paused_and_done,
          duplicate_serials, seeds_past_int64, upars_given, upars_absent,
-         one_set_two_calls, posterior_claims, serial_claims, empty_store]
+         one_set_two_calls, posterior_claims, serial_claims, empty_store,
+         complete_engine_shaped, complete_columns_copied]
 
 
 def _same(ref, port, at="result"):
@@ -244,6 +292,8 @@ BAD_CALLS = {
         2, _params(3), _seeds(3), upars=_params(2)),
     "insert_short_posterior_ranks": lambda st: st.insert_generation(
         2, _params(3), _seeds(3), posterior_ranks=[0, 1]),
+    "insert_complete_short_seeds": lambda st: st.insert_generation_complete(
+        2, _params(3), _seeds(2), _metrics(3)),
 }
 
 
