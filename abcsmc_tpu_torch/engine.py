@@ -165,6 +165,10 @@ class AbcSmc:
         #: "propose_ms", "mvn_ms", each None where the stage did not run or
         #: was not timed: the CPU, a replayed set, a filter without PLS,
         #: INDEPENDENT noise; the simulator's time steps a row, "sim_steps",
+        #: each of its device counts a row under its name (``ricker``:
+        #: "sim_grid_steps", "sim_clamped_draws"), the milliseconds of its
+        #: row statistics, "sim_stats_ms" (span "abcsmc.sim.stats"; None
+        #: but on an eager set on the card of a simulator that times them),
         #: and the MULTIVARIATE proposal's Cholesky factor, "mvn_factor")
         #: and one "run_device_phases" entry per run ("first_set", "sets";
         #: the host seconds of the graph captures, span "abcsmc.capture",
@@ -964,6 +968,16 @@ class AbcSmc:
                     None if inf["mvn_factor"] is None
                     else _host(inf["mvn_factor"]).tolist())
                 entry["sim_steps"] = inf["sim_steps"]
+                # the rise of the simulator's device counts a row (a replay
+                # its own), and the CUDA-event milliseconds of its row
+                # statistics (an eager set on the card)
+                if inf["sim_counts"] is not None:
+                    entry.update(zip(gen.simulator.count_names,
+                                     _host(inf["sim_counts"]).tolist()))
+                stats = inf["sim_stats_events"]
+                entry["sim_stats_ms"] = (
+                    sum(a.elapsed_time(b) for a, b in stats) if stats
+                    else None)
                 if inf["box_cox_lambdas"] is not None:
                     entry["box_cox_lambdas"] = _host(
                         inf["box_cox_lambdas"]).tolist()

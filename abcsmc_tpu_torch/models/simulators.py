@@ -39,6 +39,7 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from abcsmc_tpu_torch.errors import SimulatorError
 from abcsmc_tpu_torch.ops import sim_kernels
@@ -75,10 +76,33 @@ class DeviceSimulator(Simulator):
     #: of a call adds the call's rows); None for a simulator with no time
     #: loop. ``Generation`` reads it around each set's simulate stage
     row_steps: int | None = None
+    #: names of the counts the simulator keeps on the device, which its
+    #: calls add to with no host sync (:meth:`device_counts`); empty for a
+    #: simulator that keeps none
+    count_names: tuple[str, ...] = ()
+    #: CUDA event pairs around the row statistics of each call on the card
+    #: outside a graph capture, since the caller last cleared it; None for
+    #: a simulator that times no such stage
+    stats_events: list | None = None
 
     def __init__(self, fn: Callable, nmet: int | None = None):
         self.fn = fn
         self.nmet = nmet
+
+    def device_counts(self, device) -> torch.Tensor:
+        """The counts of ``count_names`` on ``device``, int64 [len], zero
+        where first asked for. The first call on a device must come outside
+        a CUDA graph capture: a vector made inside one would be the graph's,
+        and every replay would zero it."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        held = self.__dict__.setdefault("_device_counts", {})
+        counts = held.get(device)
+        if counts is None:
+            counts = held[device] = torch.zeros(
+                len(self.count_names), dtype=torch.int64, device=device)
+        return counts
 
     def batch_fn(self, params, seeds):
         return self.fn(params, seeds)
@@ -747,7 +771,15 @@ def make_ricker_simulator(t_steps: int = 100, n0: float = 1.0,
 
     Column layout: step t reads normals 2t (process noise) and 2t + 1 (the
     normal of the Poisson approximation) and uniform t (the Poisson inverse
-    CDF). Only the ``t_steps`` observed counts are stored."""
+    CDF). Only the ``t_steps`` observed counts are stored.
+
+    Counts on the device (``count_names``, :meth:`DeviceSimulator.
+    device_counts`): ``sim_grid_steps``, the observed row-steps whose draw
+    came from the grid (a mean of at most 10), and ``sim_clamped_draws``,
+    the grid draws that clamped at 23. A call on the card outside a graph
+    capture records CUDA events around the row statistics after the loop
+    (range ``abcsmc.sim.stats``) into ``stats_events``. Neither changes a
+    bit of the metrics."""
 
     def core(params, noise):
         dt, dev, n = params.dtype, params.device, params.shape[0]
@@ -757,6 +789,9 @@ def make_ricker_simulator(t_steps: int = 100, n0: float = 1.0,
         grid = torch.arange(24, dtype=dt, device=dev)
         log_fact = torch.lgamma(grid + 1.0)
         grid_idx = torch.arange(24, device=dev)
+        # per row: observed steps on the normal branch, clamped grid draws
+        on_normal = torch.zeros((n,), dtype=torch.int32, device=dev)
+        clamped = torch.zeros((n,), dtype=torch.int32, device=dev)
 
         def poisson(lam, u, g):
             lam_s = torch.clamp_max(lam, 20.0)
@@ -768,11 +803,14 @@ def make_ricker_simulator(t_steps: int = 100, n0: float = 1.0,
             # then u lies past the grid: the largest draws clamp to 23
             idx = torch.where(cdf >= u[:, None], grid_idx[None, :],
                               24).amin(dim=1).to(dt)
-            small = torch.where(u > cdf[:, -1], torch.full_like(idx, 23.0),
-                                idx)
+            past = u > cdf[:, -1]
+            small = torch.where(past, torch.full_like(idx, 23.0), idx)
             large = torch.clamp_min(
                 torch.round(lam + torch.sqrt(lam) * g), 0.0)
-            return torch.where(lam > 10.0, large, small)
+            big = lam > 10.0
+            on_normal.add_(big)
+            clamped.add_(past & ~big)
+            return torch.where(big, large, small)
 
         pop = torch.full((n,), n0, dtype=dt, device=dev)
         # particle-major; each statistic is a fixed tree of elementwise adds
@@ -786,17 +824,33 @@ def make_ricker_simulator(t_steps: int = 100, n0: float = 1.0,
             if t >= burn_in:
                 ys[:, t - burn_in] = poisson(phi * pop, u, z[:, 1])
             sim.row_steps += n
-        m = _tree_sum(ys) / t_steps
-        yc = ys - m[:, None]
-        ss = _tree_sum(yc * yc)
-        sd = torch.sqrt(torch.clamp_min(ss / (t_steps - 1), 0.0))
-        denom = torch.clamp_min(ss, 1e-9)
-        ac1 = _tree_sum(yc[:, 1:] * yc[:, :-1]) / denom
-        ac2 = _tree_sum(yc[:, 2:] * yc[:, :-2]) / denom
-        zeros = _tree_sum((ys == 0).to(dt))
-        return torch.stack([m, sd, ac1, ac2, zeros, ys.amax(dim=1)], dim=1)
+        timed = (ys.is_cuda and sim.stats_events is not None
+                 and not torch.cuda.is_current_stream_capturing())
+        with record_function("abcsmc.sim.stats"):
+            if timed:
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record()
+            m = _tree_sum(ys) / t_steps
+            yc = ys - m[:, None]
+            ss = _tree_sum(yc * yc)
+            sd = torch.sqrt(torch.clamp_min(ss / (t_steps - 1), 0.0))
+            denom = torch.clamp_min(ss, 1e-9)
+            ac1 = _tree_sum(yc[:, 1:] * yc[:, :-1]) / denom
+            ac2 = _tree_sum(yc[:, 2:] * yc[:, :-2]) / denom
+            zeros = _tree_sum((ys == 0).to(dt))
+            out = torch.stack([m, sd, ac1, ac2, zeros, ys.amax(dim=1)],
+                              dim=1)
+            if timed:
+                events[1].record()
+                sim.stats_events.append(events)
+        sim.device_counts(dev).add_(torch.stack([
+            t_steps * n - on_normal.sum(), clamped.sum()]))
+        return out
 
     sim = _family(core, nmet=6, time_loop=True)
+    sim.count_names = ("sim_grid_steps", "sim_clamped_draws")
+    sim.stats_events = []
     return sim
 
 

@@ -261,6 +261,13 @@ class GenerationResult:
     sim_steps: float | None = None  # time steps the simulate stage ran a
     #                                 row (a replay: the captured step's;
     #                                 None: no time loop, or no simulate)
+    sim_counts: torch.Tensor | None = None  # float64 [k]: the rise of the
+    #                                 simulator's device counts a row (its
+    #                                 ``count_names``; a replay recomputes
+    #                                 them; None: it keeps none)
+    sim_stats_events: tuple | None = None  # CUDA event pairs around the
+    #                                 simulator's row statistics (an eager
+    #                                 step on the card; None: untimed)
     mvn_factor: torch.Tensor | None = None  # [P, P] the MULTIVARIATE
     #                                         proposal's Cholesky factor
 
@@ -739,23 +746,40 @@ class Generation:
                           torch.cuda.Event(enable_timing=True))
                 events[0].record()
             with record_function("abcsmc.step.simulate"):
-                mets, sim_steps = self._simulate_counted(params, seeds)
+                mets, counted = self._simulate_counted(params, seeds)
             if events:
                 events[1].record()
             res = self._step(params, mets, keep, n_next, draws, prev_state,
                              n_valid)
-        res.sim_events, res.sim_steps = events, sim_steps
+        res.sim_events = events
+        res.sim_steps, res.sim_counts, res.sim_stats_events = counted
         return res
 
     def _simulate_counted(self, params, seeds):
-        """:meth:`_simulate`, and the time steps the simulator's loop ran a
-        row (its ``row_steps`` counter over the rows; None without one)."""
-        before = getattr(self.simulator, "row_steps", None)
+        """:meth:`_simulate`, and what the simulator counted of it:
+        (the time steps its loop ran a row, its ``row_steps`` counter over
+        the rows, None without one; the rise of its device counts a row, a
+        float64 [k] tensor on the lead shard's device computed with no host
+        sync, None where it keeps none; the CUDA event pairs around its row
+        statistics, None where it times none)."""
+        sim = self.simulator
+        before = getattr(sim, "row_steps", None)
+        names = getattr(sim, "count_names", ())
+        devices = list(dict.fromkeys(p.device for p in params))
+        start = [sim.device_counts(d).clone() for d in devices] \
+            if names else None
+        stats = getattr(sim, "stats_events", None)
+        if stats is not None:
+            stats.clear()
         mets = self._simulate(params, seeds)
-        if before is None:
-            return mets, None
-        rows = sum(p.shape[0] for p in params)
-        return mets, (self.simulator.row_steps - before) / max(rows, 1)
+        rows = max(sum(p.shape[0] for p in params), 1)
+        steps = None if before is None else (sim.row_steps - before) / rows
+        counts = None
+        if names:
+            counts = sum((sim.device_counts(d) - s).to(devices[0])
+                         for d, s in zip(devices, start)).double() / rows
+        # a tuple: a list in a result is a list of shards
+        return mets, (steps, counts, tuple(stats or ()) or None)
 
     def _simulate(self, params, seeds):
         """Metrics [n, M] of each shard. Where the row passes are chunked
@@ -1637,6 +1661,9 @@ class Generation:
             "mvn_factor": (None if res.mvn_factor is None
                            else res.mvn_factor.clone()),
             "sim_steps": res.sim_steps,
+            "sim_counts": (None if res.sim_counts is None
+                           else res.sim_counts.clone()),
+            "sim_stats_events": res.sim_stats_events,
             "box_cox_lambdas": (None if res.box_cox_lambdas is None
                                 else res.box_cox_lambdas.clone()),
         }
@@ -1683,9 +1710,9 @@ class Generation:
             self._copy_draws(draws, like_draws)
 
             def body():
-                mets, sim_steps = self._simulate_counted(params, seeds)
+                mets, counted = self._simulate_counted(params, seeds)
                 res = self._step(params, mets, keep, n, draws, state, None)
-                res.sim_steps = sim_steps
+                res.sim_steps, res.sim_counts, _ = counted
                 return res
 
             graph, result, held = self._record(body)

@@ -805,6 +805,87 @@ def test_sir_kernel_bits_equal_the_chain(cuda, population, t_steps, i0,
     assert (got[:, 5] > 0).mean() > 0.25
 
 
+def _ricker_inputs(n, dev, seed):
+    """params [n, 3] over ``ricker_1m``'s prior box (log r in [2, 5], sigma
+    in [0.05, 1], phi in [2, 30]), a sixteenth of them at Wood's truth
+    (3.8, 0.3, 10), where the means near 10 put draws past the grid; seeds
+    in the production range [0, 2^31 - 1)."""
+    rng = np.random.default_rng(seed)
+    params = rng.uniform([2.0, 0.05, 2.0], [5.0, 1.0, 30.0], (n, 3))
+    params[::16] = (3.8, 0.3, 10.0)
+    return (torch.as_tensor(params, dtype=torch.float32, device=dev),
+            torch.as_tensor(rng.integers(0, 2**31 - 1, n), device=dev))
+
+
+def test_ricker_rows_are_the_same_bits_in_any_batch(cuda):
+    """A 1,048,576-row ``ricker`` batch (``ricker_1m``'s set) against the
+    same rows simulated in blocks of 4,096 (16 blocks across the batch) and
+    of 131,072 (every row): every metric to the bit, as the chaotic map
+    needs for a stored row to replay. The counts of grid and clamped draws
+    of the blocks add up to the batch's, a call makes no host sync, and it
+    times its row statistics once."""
+    from abcsmc_tpu_torch.models.simulators import make_ricker_simulator
+
+    sim = make_ricker_simulator()
+    n = 1 << 20
+    params, seeds = _ricker_inputs(n, cuda, 5)
+    counts = sim.device_counts(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        whole = sim.batch_fn(params, seeds)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(sim.stats_events) == 1
+    whole = whole.cpu().numpy()
+    once = counts.clone()
+    # many rows take the grid, some clamp past it, many take the normal
+    assert 0 < once[1] < once[0] < 100 * n
+    for rows in (4096, 1 << 17):
+        counts.zero_()
+        starts = range(0, n, rows) if rows > 4096 else range(
+            0, n, n // 16)
+        for a in starts:
+            got = sim.batch_fn(params[a:a + rows], seeds[a:a + rows])
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          whole[a:a + rows], err_msg=str(a))
+        if rows > 4096:
+            assert torch.equal(counts, once)
+    assert np.isfinite(whole).all()
+
+
+def test_ricker_counts_and_times_on_both_routes(cuda):
+    """``ricker`` as ``examples/ricker.json`` ships it, sequential and
+    fused (sets 2-5 replay a captured step): the same rows, and the same
+    ``sim_grid_steps`` and ``sim_clamped_draws`` a row in every set (a
+    replay's counted by the graph itself); 150 steps a row; the row
+    statistics timed on eager sets only."""
+    import json
+    from pathlib import Path
+
+    raw = json.loads((Path(__file__).resolve().parent.parent / "examples"
+                      / "ricker.json").read_text())
+    raw.update(num_samples=1 << 14, database_filename="")
+    runs = {}
+    for dispatch in ("sequential", "fused"):
+        a = AbcSmc(dict(raw, device_dispatch=dispatch), device="cuda")
+        with redirect_stderr(io.StringIO()):
+            a.run_device(seed=4)
+        runs[dispatch] = [e for e in a.timings
+                          if e["op"] == "device_generation"], a
+    (seq, a_seq), (fused, a_fused) = runs["sequential"], runs["fused"]
+    assert [e["route"] for e in fused] == ["eager"] * 2 + ["replay"] * 4
+    for x, y in zip(a_seq.storage.read_generations(),
+                    a_fused.storage.read_generations()):
+        np.testing.assert_array_equal(x.metrics, y.metrics)
+    for e, f in zip(seq, fused):
+        assert e["sim_steps"] == f["sim_steps"] == 150.0
+        assert 0 < e["sim_grid_steps"] == f["sim_grid_steps"] <= 100.0
+        assert e["sim_clamped_draws"] == f["sim_clamped_draws"]
+        assert e["sim_stats_ms"] > 0
+        assert (f["sim_stats_ms"] is None) == (f["route"] == "replay")
+
+
 def test_sir_kernel_replayed_in_a_graph_equals_the_chain(cuda):
     """The kernel recorded into a CUDA graph (a static [N, 6] output in
     the graph's pool) and replayed twice with new rows copied in: each
