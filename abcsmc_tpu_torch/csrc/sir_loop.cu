@@ -30,103 +30,31 @@
 //
 // The contract is the chain's bits (tests/test_torch_gpu.py holds them
 // equal on all six metrics, in both dtypes). So every operation rounds
-// where a PyTorch CUDA op rounds, in the same order:
-// - each product, sum and quotient is written with an _rn intrinsic, so
-//   nvcc's default -fmad contracts none of them into an FMA (PyTorch runs
-//   each op as its own kernel, rounding in between);
+// where a PyTorch CUDA op rounds, in the same order, by the rules of
+// counter_hash.cuh (the draws and the arithmetic it shares with
+// csrc/ricker_loop.cu), and besides:
 // - a tensor divided by a Python scalar is PyTorch's CUDA multiply by
 //   the scalar's reciprocal, taken in float64 and rounded to the dtype:
 //   `-beta * i / population` is ((-beta) * i) * inv_pop with inv_pop
 //   from the wrapper, and `total / 2` is total * 0.5;
-// - exp, log, cos and sqrt are the accurate math-library functions that
-//   PyTorch's kernels call, never the intrinsics;
-// - torch.round is nearbyint (half to even); clamp_min, minimum and clamp
-//   keep PyTorch's NaN rule (a NaN operand is returned), and clamp's 1e-6
-//   is rounded to the dtype;
 // - the peak takes a strict `>` from -inf: the first maximum wins;
 // - every running sum adds day by day from 0, as the chain's sums and
 //   its cumsum over days (a sequential scan for the outer dimension) do.
 
 #include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+
+#include "counter_hash.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 // the most chunks the days are cut into (the checkpoints a thread keeps)
 constexpr int kChunks = 32;
-constexpr uint32_t kSeedSalt = 0x9E3779B9u;      // simulators._SEED_SALT
-constexpr double kTwoPi = 6.283185307179586;     // Python's 2.0 * math.pi
-constexpr double kInv2p32 = 2.3283064365386963e-10;  // 1 / 2^32, exact
-
-// one rounding each, in the dtype
-#define DEV __device__ __forceinline__
-DEV float add(float a, float b) { return __fadd_rn(a, b); }
-DEV double add(double a, double b) { return __dadd_rn(a, b); }
-DEV float sub(float a, float b) { return __fsub_rn(a, b); }
-DEV double sub(double a, double b) { return __dsub_rn(a, b); }
-DEV float mul(float a, float b) { return __fmul_rn(a, b); }
-DEV double mul(double a, double b) { return __dmul_rn(a, b); }
-DEV float quot(float a, float b) { return __fdiv_rn(a, b); }
-DEV double quot(double a, double b) { return __ddiv_rn(a, b); }
-DEV float root(float a) { return __fsqrt_rn(a); }
-DEV double root(double a) { return __dsqrt_rn(a); }
-DEV float expo(float a) { return expf(a); }
-DEV double expo(double a) { return exp(a); }
-DEV float nearest(float a) { return nearbyintf(a); }
-DEV double nearest(double a) { return nearbyint(a); }
-DEV float least(float a, float b) { return fminf(a, b); }
-DEV double least(double a, double b) { return fmin(a, b); }
-DEV float most(float a, float b) { return fmaxf(a, b); }
-DEV double most(double a, double b) { return fmax(a, b); }
-DEV float magnitude(float a) { return fabsf(a); }
-DEV double magnitude(double a) { return fabs(a); }
-DEV float narrow(double a, float) { return __double2float_rn(a); }
-DEV double narrow(double a, double) { return a; }
-
-// murmur3's 32-bit finalizer (ops/pls.py::_fmix32 on uint32 words)
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-// The standard normal of counter-hash words w and w + 1 of a row's seed
-// word (simulators._box_muller): float64, then rounded to the dtype
-template <typename T>
-__device__ __forceinline__ T normal(uint32_t base, uint32_t w) {
-  const double u1 = __dmul_rn(
-      __dadd_rn(static_cast<double>(fmix32(base ^ w)), 1.0), kInv2p32);
-  const double u2 =
-      __dmul_rn(static_cast<double>(fmix32(base ^ (w + 1u))), kInv2p32);
-  const double radius = __dsqrt_rn(__dmul_rn(-2.0, log(u1)));
-  return narrow(__dmul_rn(radius, cos(__dmul_rn(kTwoPi, u2))), T());
-}
-
-// torch.clamp_min, torch.minimum and torch.clamp
-template <typename T>
-__device__ __forceinline__ T clamp_min(T v, T lo) {
-  return v != v ? v : most(v, lo);
-}
-
-template <typename T>
-__device__ __forceinline__ T minimum(T a, T b) {
-  return a != a ? a : b != b ? b : least(a, b);
-}
-
-template <typename T>
-__device__ __forceinline__ T clamp(T v, T lo, T hi) {
-  return v != v ? v : least(most(v, lo), hi);
-}
 
 // simulators._binomial_normal: round(n p + sqrt(n p (1 - p)) z), half to
 // even, clipped to [0, n]
 template <typename T>
-__device__ __forceinline__ T binomial(T n, T p, T z) {
+DEV T binomial(T n, T p, T z) {
   const T mean = mul(n, p);
   const T sd = root(clamp_min(mul(mean, sub(T(1), p)), T(0)));
   const T x = nearest(add(mean, mul(sd, z)));
@@ -146,8 +74,8 @@ struct Row {
 // recoveries). Day t reads normals 2t (infections) and 2t + 1
 // (recoveries), i.e. hash words 4t .. 4t + 3.
 template <typename T>
-__device__ __forceinline__ void day(const Row<T>& row, int t, T& s, T& i,
-                                    T& new_inf, T& new_rec) {
+DEV void day(const Row<T>& row, int t, T& s, T& i, T& new_inf,
+             T& new_rec) {
   const uint32_t w = 4u * static_cast<uint32_t>(t);
   const T z_inf = normal<T>(row.base, w);
   const T z_rec = normal<T>(row.base, w + 2u);
@@ -262,8 +190,6 @@ int launch(const T* params, const long long* seeds, T* out, int n,
       params, seeds, out, n, t_steps, s0, i0, inv_pop);
   return cudaGetLastError();
 }
-
-#undef DEV
 
 }  // namespace
 

@@ -136,7 +136,7 @@ def analyze(src: Path, match: str | None = None,
     cuobjdump = Path(nvcc).parent / "cuobjdump"
     out_dir = _build.BUILD_DIR.parent / "sass"
     out_dir.mkdir(parents=True, exist_ok=True)
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256(_build.source_bytes(src)).hexdigest()[:16]
     so = out_dir / f"{src.stem}-{digest}.so"
     build = subprocess.run(
         [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so),

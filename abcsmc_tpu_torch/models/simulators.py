@@ -773,6 +773,13 @@ def make_ricker_simulator(t_steps: int = 100, n0: float = 1.0,
     normal of the Poisson approximation) and uniform t (the Poisson inverse
     CDF). Only the ``t_steps`` observed counts are stored.
 
+    Two paths for the loop, the same bits. A call of the simulator on a
+    CUDA device runs it as one hand-written kernel
+    (:func:`abcsmc_tpu_torch.ops.sim_kernels.ricker_loop`, float32 or
+    float64; it raises on what it does not take). A call on the CPU, and
+    ``metrics_from_noise`` always, runs the chain of PyTorch ops below. The
+    row statistics after the loop are PyTorch ops on both.
+
     Counts on the device (``count_names``, :meth:`DeviceSimulator.
     device_counts`): ``sim_grid_steps``, the observed row-steps whose draw
     came from the grid (a mean of at most 10), and ``sim_clamped_draws``,
@@ -790,8 +797,8 @@ def make_ricker_simulator(t_steps: int = 100, n0: float = 1.0,
         log_fact = torch.lgamma(grid + 1.0)
         grid_idx = torch.arange(24, device=dev)
         # per row: observed steps on the normal branch, clamped grid draws
-        on_normal = torch.zeros((n,), dtype=torch.int32, device=dev)
-        clamped = torch.zeros((n,), dtype=torch.int32, device=dev)
+        counts = torch.zeros((2, n), dtype=torch.int32, device=dev)
+        on_normal, clamped = counts
 
         def poisson(lam, u, g):
             lam_s = torch.clamp_max(lam, 20.0)
@@ -813,8 +820,6 @@ def make_ricker_simulator(t_steps: int = 100, n0: float = 1.0,
             return torch.where(big, large, small)
 
         pop = torch.full((n,), n0, dtype=dt, device=dev)
-        # particle-major; each statistic is a fixed tree of elementwise adds
-        # over a row (_tree_sum), the same bits whatever the batch
         ys = torch.empty((n, t_steps), dtype=dt, device=dev)
         for t in range(t_steps + burn_in):
             z = noise.normals(2)
@@ -824,6 +829,14 @@ def make_ricker_simulator(t_steps: int = 100, n0: float = 1.0,
             if t >= burn_in:
                 ys[:, t - burn_in] = poisson(phi * pop, u, z[:, 1])
             sim.row_steps += n
+        return statistics(ys, counts)
+
+    def statistics(ys, counts):
+        """The metrics of the observed series ys [n, t_steps]
+        (particle-major; each statistic is a fixed tree of elementwise adds
+        over a row, _tree_sum, the same bits whatever the batch), and the
+        loop's counts [2, n] added to the device counts."""
+        dt, n = ys.dtype, ys.shape[0]
         timed = (ys.is_cuda and sim.stats_events is not None
                  and not torch.cuda.is_current_stream_capturing())
         with record_function("abcsmc.sim.stats"):
@@ -844,11 +857,22 @@ def make_ricker_simulator(t_steps: int = 100, n0: float = 1.0,
             if timed:
                 events[1].record()
                 sim.stats_events.append(events)
-        sim.device_counts(dev).add_(torch.stack([
-            t_steps * n - on_normal.sum(), clamped.sum()]))
+        sim.device_counts(ys.device).add_(torch.stack([
+            t_steps * n - counts[0].sum(), counts[1].sum()]))
         return out
 
+    def batch(params, seeds):
+        if not params.is_cuda:
+            return core(params, CounterNoise(seeds, params.dtype))
+        ys, counts = sim_kernels.ricker_loop(
+            params[:, :3].contiguous(),
+            seeds.to(params.device, torch.int64).contiguous(), t_steps,
+            burn_in, n0)
+        sim.row_steps += (t_steps + burn_in) * params.shape[0]
+        return statistics(ys, counts)
+
     sim = _family(core, nmet=6, time_loop=True)
+    sim.fn = batch
     sim.count_names = ("sim_grid_steps", "sim_clamped_draws")
     sim.stats_events = []
     return sim

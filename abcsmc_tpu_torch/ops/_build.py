@@ -3,9 +3,9 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` into a shared library with a
 plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds). The library lands in ``build/kernels/`` at the root of the
-checkout, named by a hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is reused. Nothing is built when a module is
-imported.
+checkout, named by a hash of its source, the files it includes by a quoted
+name and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused. Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -48,6 +49,27 @@ def find_nvcc() -> str:
     )
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_bytes(src: str | Path) -> bytes:
+    """The bytes of ``src`` and, after them, of each file it includes by a
+    quoted name (found beside the file that includes it), each once, in
+    the order they are first included."""
+    seen: list[Path] = []
+
+    def walk(path: Path):
+        path = path.resolve()
+        if path in seen:
+            return
+        seen.append(path)
+        for inc in _LOCAL_INCLUDE.findall(path.read_text()):
+            walk(path.parent / inc)
+
+    walk(Path(src))
+    return b"".join(p.read_bytes() for p in seen)
+
+
 def load_library(name: str, src: str | Path | None = None) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu``, or ``src`` when given (if no build of
     this exact source exists), and return the loaded library."""
@@ -57,7 +79,7 @@ def load_library(name: str, src: str | Path | None = None) -> ctypes.CDLL:
             return lib
         src = Path(src) if src is not None else CSRC / f"{name}.cu"
         digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            source_bytes(src) + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         so = BUILD_DIR / f"lib{name}-{digest}.so"
         build_seconds[name] = 0.0

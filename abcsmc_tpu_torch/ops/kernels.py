@@ -49,7 +49,7 @@ from typing import NamedTuple
 import torch
 
 from abcsmc_tpu_torch.ops import _build
-from abcsmc_tpu_torch.ops.sim_kernels import sir_loop
+from abcsmc_tpu_torch.ops.sim_kernels import LOOP_KERNELS
 
 NEG_INF = -1e30
 MODES = ("auto", "static", "online")
@@ -435,12 +435,13 @@ def graph_capture_counts():
     as it was before it. The dict it yields is filled on exit with what
     the graph holds, which each replay passes to :func:`count_replay`:
     "partial" (the weight kernel's partial-kernel launches), "kernels"
-    (its C entry's launches, the prologue counted) and "sir_loop" (the
-    simulator kernel's, ``sim_kernels.sir_loop.launches``)."""
+    (its C entry's launches, the prologue counted) and, under its name,
+    each of ``sim_kernels.LOOP_KERNELS`` (the simulator kernels'
+    ``launches``)."""
     global _graph_offset
     launches = mixture_logsumexp.launches
     by_precision = dict(mixture_logsumexp.launches_by_precision)
-    loops = sir_loop.launches
+    loops = {k.__name__: k.launches for k in LOOP_KERNELS}
     c0 = _c_launches()
     held: dict = {}
     try:
@@ -448,10 +449,11 @@ def graph_capture_counts():
     finally:
         held["partial"] = mixture_logsumexp.launches - launches
         held["kernels"] = _c_launches() - c0
-        held["sir_loop"] = sir_loop.launches - loops
+        for k in LOOP_KERNELS:
+            held[k.__name__] = k.launches - loops[k.__name__]
+            k.launches = loops[k.__name__]
         mixture_logsumexp.launches = launches
         mixture_logsumexp.launches_by_precision.update(by_precision)
-        sir_loop.launches = loops
         _graph_offset -= held["kernels"]
 
 
@@ -463,7 +465,8 @@ def count_replay(held: dict, precision: str):
     global _graph_offset
     count_launches(held["partial"], precision)
     _graph_offset += held["kernels"]
-    sir_loop.launches += held["sir_loop"]
+    for k in LOOP_KERNELS:
+        k.launches += held[k.__name__]
 
 
 def _check_cuda_inputs(a, b, log_w):

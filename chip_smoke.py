@@ -41,7 +41,9 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
              max abs diff <= 2e-4 nats; then the sir loop's kernel
              (csrc/sir_loop.cu) at sir_1m's 1,048,576 rows x 160 days
              against its plain PyTorch chain on the same rows, bit for
-             bit, both timed beside the loop's least time;
+             bit, both timed beside the loop's least time; and the ricker
+             loop's kernel (csrc/ricker_loop.cu) at ricker_1m's 1,048,576
+             rows x 150 steps the same way;
 3. dengue  - examples/dengue_surrogate.json through
              AbcSmc(cfg, device="cuda").run_device(), cut to 3 sets: complete
              SQLite sets of 2,048 ranked rows, ncomp_used > 1 in each, 2
@@ -79,9 +81,10 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
              on, in-memory store: MULTIVARIATE proposal of 1M rows, Box-Cox
              over 1M x 6, the 160-step SIR loop over 1M particles, the
              kernel at 52,429^2 x 2; simulate apart from the rest of the
-             step, peak device memory, chosen lambdas, launches (the sir
-             loop's kernel once a set, here and wherever phases 7, 11
-             and 13 run sir: once a set and shard);
+             step, peak device memory, chosen lambdas, launches (each
+             simulator loop kernel's, read right after every run here and
+             in phases 7, 11 and 13: once a set and shard for the kernel of
+             the run's simulator, sir's or ricker's, none for the other);
 9. projection - examples/pseudo.json as shipped through the CLI; a PSEUDO
              sweep of 320 x 320 = 102,400 dice combinations (one claim, one
              batch_fn call, writeback); a POSTERIOR replay whose source is
@@ -566,6 +569,64 @@ def phase_sir_kernel():
     return out
 
 
+def phase_ricker_kernel():
+    """The ricker loop's kernel (``sim_kernels.ricker_loop``) against its
+    plain version, the simulator's PyTorch chain (``metrics_from_noise`` on
+    the seeds' counter noise), on the same rows at ricker_1m's 1,048,576
+    rows x 150 steps: all six metrics bit for bit, and the grid and
+    clamped counts equal. Rows over ricker_1m's prior box, a sixteenth at
+    Wood's truth. The kernel alone, the simulator's call (the kernel and
+    the row statistics) and the chain timed (CUDA events) beside the
+    loop's least time (``port_bench/kernels/ricker_loop.py``, at the grid
+    steps this batch counted)."""
+    import numpy as np
+    import torch
+
+    from abcsmc_tpu_torch.models.simulators import (
+        CounterNoise, make_ricker_simulator,
+    )
+    from abcsmc_tpu_torch.ops.sim_kernels import ricker_loop
+    from port_bench.kernels import ricker_loop as roofline
+
+    n, observed, burn_in = SIR_1M[0], 100, 50
+    rng = np.random.default_rng(23)
+    p = rng.uniform([2.0, 0.05, 2.0], [5.0, 1.0, 30.0], (n, 3))
+    p[::16] = (3.8, 0.3, 10.0)
+    params = torch.as_tensor(p, dtype=torch.float32, device="cuda")
+    seeds = torch.as_tensor(rng.integers(0, 2**31 - 1, n), device="cuda")
+    sim, chain = make_ricker_simulator(), make_ricker_simulator()
+
+    def plain():
+        return chain.metrics_from_noise(
+            params, CounterNoise(seeds, torch.float32))
+
+    got, want = sim.batch_fn(params, seeds), plain()
+    counts = sim.device_counts("cuda").clone()
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    err = float(torch.nan_to_num((got - want).abs(), nan=math.inf).max())
+    check(same, f"ricker loop kernel at {n} x {observed + burn_in}: not "
+          f"the chain's bits, max abs err {err}")
+    check(torch.equal(counts, chain.device_counts("cuda")),
+          f"ricker loop kernel: counts {counts.tolist()}, chain's "
+          f"{chain.device_counts('cuda').tolist()}")
+    grid = float(counts[0]) / n
+    out = {"shape": [n, observed + burn_in], "max_abs_err": err,
+           "grid_steps_a_row": grid, "clamped_draws": int(counts[1]),
+           "ms": cuda_ms(lambda: ricker_loop(params, seeds, observed,
+                                             burn_in, 1.0), 20),
+           "simulate_ms": cuda_ms(lambda: sim.batch_fn(params, seeds), 10),
+           "plain_ms": cuda_ms(plain, 2),
+           "bound_ms": roofline.least_ms(observed + burn_in, observed, grid,
+                                         n),
+           "bound_terms_ms": roofline.terms_ms(observed + burn_in, observed,
+                                               grid, n)}
+    out["bound_by"] = max(out["bound_terms_ms"],
+                          key=out["bound_terms_ms"].get)
+    emit({"phase": "ricker_kernel", **out})
+    return out
+
+
 def phase_kernel_schemes(errs):
     """Every dot scheme at SCHEME_SHAPES and at the shipped keeps
     (``keep_shapes``; short splits) in each mode against its
@@ -828,32 +889,41 @@ def set_inputs(run, t):
 
 
 def reset_launches():
-    """Every launch count to 0 (the total and each scheme's, and the sir
-    loop kernel's)."""
+    """Every launch count to 0 (the weight kernel's total and each
+    scheme's, and each simulator loop kernel's)."""
     from abcsmc_tpu_torch.ops.kernels import mixture_logsumexp
-    from abcsmc_tpu_torch.ops.sim_kernels import sir_loop
+    from abcsmc_tpu_torch.ops.sim_kernels import LOOP_KERNELS
 
     mixture_logsumexp.launches = 0
     for k in PRECISIONS:
         mixture_logsumexp.launches_by_precision[k] = 0
-    sir_loop.launches = 0
+    for k in LOOP_KERNELS:
+        k.launches = 0
 
 
-#: the sir loop kernel's launches over every phase's main path
-SIR_LAUNCHES = {"main_path": 0}
+#: each simulator loop kernel's launches over every phase's main path
+LOOP_LAUNCHES = {}
 
 
-def check_sir_launches(what, want):
-    """The sir loop kernel's launches since the last
-    :func:`reset_launches` against ``want`` (one a set and shard: a set
-    simulates each shard's rows in one call at these sizes, and a replayed
-    set counts the launch its graph holds); added to the main path's
-    count."""
-    from abcsmc_tpu_torch.ops.sim_kernels import sir_loop
+def check_loop_launches(what, simulator, calls):
+    """Each simulator loop kernel's launches since the last
+    :func:`reset_launches`: ``calls`` for the kernel of ``simulator`` (the
+    builtin ``<simulator>`` runs ``<simulator>_loop``; one a set and
+    shard: a set simulates each shard's rows in one call at these sizes,
+    and a replayed set counts the launch its graph holds), 0 for every
+    other. Read right after a main-path run, before anything else
+    simulates, and added to the main path's counts; returns them by
+    kernel."""
+    from abcsmc_tpu_torch.ops.sim_kernels import LOOP_KERNELS
 
-    got = sir_loop.launches
-    check(got == want, f"{what}: sir loop kernel launches {got}, want {want}")
-    SIR_LAUNCHES["main_path"] += got
+    got = {}
+    for k in LOOP_KERNELS:
+        want = calls if k.__name__ == f"{simulator}_loop" else 0
+        got[k.__name__] = k.launches
+        check(k.launches == want, f"{what}: {k.__name__} kernel launches "
+              f"{k.launches}, want {want}")
+        LOOP_LAUNCHES[k.__name__] = (LOOP_LAUNCHES.get(k.__name__, 0)
+                                     + k.launches)
     return got
 
 
@@ -1202,8 +1272,8 @@ def phase_examples():
         by = read_launches()
         launches = sum(by.values())
         total = add_launches(total, by)
-        sir_launches = check_sir_launches(
-            name, n_sets if cfg.get("simulator") == "sir" else 0)
+        loop_launches = check_loop_launches(name, cfg.get("simulator"),
+                                            n_sets)
         run.storage.close()
         rows = store_rows(db)
         sizes = [run.config.smc_size_at(t) for t in range(n_sets)]
@@ -1221,7 +1291,7 @@ def phase_examples():
         report = fit_report(run, cfg, truth, must_beat)
         emit({"phase": "examples", "example": name, "noise": cfg["noise"],
               "sizes": sizes[:2], "sets": n_sets, "wall_s": wall,
-              "launches": launches, "sir_loop_launches": sir_launches,
+              "launches": launches, "loop_launches": loop_launches,
               "replay_other_batch_max_rel_diff":
                   replay_diff(run, max(sizes), replay_tol),
               **report})
@@ -1254,14 +1324,14 @@ def phase_sir_1m():
     check([(g.size, len(g.predictive_prior_indices())) for g in stored]
           == [(n, keep)] * n_sets, "sir_1m store sets")
     check(launches == 2 * (n_sets - 1), f"sir_1m kernel launches {launches}")
-    sir_launches = check_sir_launches("sir_1m", n_sets)
+    loop_launches = check_loop_launches("sir_1m", "sir", n_sets)
     report = fit_report(run, cfg, *EXAMPLES["sir"][:2])
     gens = [e for e in run.timings if e["op"] == "device_generation"]
     lambdas = [e["box_cox_lambdas"] for e in gens]
     check(all(len(lam) == 6 for lam in lambdas), "sir_1m lambdas")
     emit({"phase": "sir_1m", "n": n, "keep": keep, "sets": n_sets,
           "wall_s": wall, "launches": launches,
-          "sir_loop_launches": sir_launches,
+          "loop_launches": loop_launches,
           "rest_of_step_ms": [ms - sim for ms, sim in
                               zip(report["set_ms"], report["simulate_ms"])],
           "peak_memory_bytes": peak, "box_cox_lambdas": lambdas, **report})
@@ -1820,10 +1890,13 @@ def phase_fused():
     kernel_errs = replayed_kernel_vs_plain()
     for name in FUSED_EXAMPLES:
         cfg = json.loads((REPO / "examples" / f"{name}.json").read_text())
-        n_sets = cfg["smc_iterations"]
+        n_sets, sim = cfg["smc_iterations"], cfg.get("simulator")
         seq, wall_seq, by_seq, _ = routed_run(cfg, "sequential")
+        loops = [check_loop_launches(f"{name} sequential", sim, n_sets)]
         seq2, wall_seq2, _, _ = routed_run(cfg, "sequential")
+        loops.append(check_loop_launches(f"{name} sequential", sim, n_sets))
         fused, wall_fused, by_fused, said = routed_run(cfg, "fused")
+        loops.append(check_loop_launches(f"{name} fused", sim, n_sets))
         total = add_launches(total, by_seq, by_fused)
         l_seq, l_fused = sum(by_seq.values()), sum(by_fused.values())
         agree = stored_diff(seq, seq2)
@@ -1845,6 +1918,8 @@ def phase_fused():
               "wall_s": {"sequential": [wall_seq, wall_seq2],
                          "fused": wall_fused},
               "launches": {"sequential": l_seq, "fused": l_fused},
+              "loop_launches": dict(zip(("sequential", "sequential_again",
+                                         "fused"), loops)),
               "sequential": route_report(seq2), "fused": rep})
         del seq, seq2, fused
 
@@ -1906,11 +1981,11 @@ def fused_mvn(kernel_errs):
     for name in MVN_FUSED:
         cfg = json.loads((REPO / "examples" / f"{name}.json").read_text())
         n_sets = cfg["smc_iterations"]
-        sir = n_sets if cfg["simulator"] == "sir" else 0
+        sim = cfg["simulator"]
         seq, wall_seq, by_seq, _ = routed_run(cfg, "sequential")
-        sir_launches = [check_sir_launches(f"{name} sequential", sir)]
+        loops = [check_loop_launches(f"{name} sequential", sim, n_sets)]
         fused, wall_fused, by_fused, said = routed_run(cfg, "fused")
-        sir_launches.append(check_sir_launches(f"{name} fused", sir))
+        loops.append(check_loop_launches(f"{name} fused", sim, n_sets))
         total = add_launches(total, by_seq, by_fused)
         l_seq, l_fused = sum(by_seq.values()), sum(by_fused.values())
         diff = stored_diff(seq, fused)
@@ -1928,8 +2003,7 @@ def fused_mvn(kernel_errs):
               "sets": n_sets, "fused_vs_sequential_max_abs_diff": diff,
               "wall_s": {"sequential": wall_seq, "fused": wall_fused},
               "launches": {"sequential": l_seq, "fused": l_fused},
-              "sir_loop_launches": dict(zip(("sequential", "fused"),
-                                            sir_launches)),
+              "loop_launches": dict(zip(("sequential", "fused"), loops)),
               "set_ms": {"sequential": set_ms_by_route(rep_seq)["eager"],
                          "fused": set_ms_by_route(rep)},
               "mvn_rounds": rep["mvn_rounds"],
@@ -2278,12 +2352,12 @@ def mesh_fits():
         sets = cfg["smc_iterations"]
         check(n_launch == 2 * k * (sets - 1),
               f"{name} mesh launches {n_launch}")
-        sir_launches = check_sir_launches(
-            f"{name} mesh", k * sets if cfg["simulator"] == "sir" else 0)
+        loop_launches = check_loop_launches(f"{name} mesh",
+                                            cfg["simulator"], k * sets)
         rep = fit_report(run, cfg, *EXAMPLES[name][:2])
         check(max(rep["mvn_rounds"][:-1]) >= 1, f"{name} mesh mvn rounds")
         out[name] = {"wall_s": wall, "launches": n_launch,
-                     "sir_loop_launches": sir_launches,
+                     "loop_launches": loop_launches,
                      "kernel_shapes": sorted(shapes),
                      "mvn_rounds": rep["mvn_rounds"], "ncomp": rep["ncomp"],
                      "routes": rep["routes"], "set_ms": rep["set_ms"],
@@ -2901,6 +2975,7 @@ def main() -> int:
 
     errs, times, schemes = phase_kernel()
     sir_kernel = phase_sir_kernel()
+    ricker_kernel = phase_ricker_kernel()
     main_path = dict.fromkeys(PRECISIONS, 0)
     walls = {}
 
@@ -2944,7 +3019,7 @@ def main() -> int:
     walls["script"] = time.perf_counter() - T_START
     emit({"phase": "walls", "seconds": walls,
           "main_path_launches": main_path,
-          "sir_loop_main_path_launches": SIR_LAUNCHES["main_path"]})
+          "loop_main_path_launches": dict(LOOP_LAUNCHES)})
     n, m, p = REPORT_SHAPE
     big = f"{n}x{m}x{p}"
     bound = kernel_bound_ms(n, m, p)
@@ -3017,7 +3092,7 @@ def main() -> int:
         "source": "abcsmc_tpu_torch/csrc/sir_loop.cu",
         "replaces": None,
         "precision": "float32",
-        "launches": SIR_LAUNCHES["main_path"],
+        "launches": LOOP_LAUNCHES.get("sir_loop", 0),
         "max_abs_err": sir_kernel["max_abs_err"],
         "ms": sir_kernel["ms"],
         "plain_ms": sir_kernel["plain_ms"],
@@ -3027,6 +3102,23 @@ def main() -> int:
         "library_ms": None,
         "shape": sir_kernel["shape"],
         "bound_terms_ms": sir_kernel["bound_terms_ms"],
+    })
+    entries.append({
+        "name": "ricker_loop_kernel",
+        "route": "cuda",
+        "source": "abcsmc_tpu_torch/csrc/ricker_loop.cu",
+        "replaces": None,
+        "precision": "float32",
+        "launches": LOOP_LAUNCHES.get("ricker_loop", 0),
+        "max_abs_err": ricker_kernel["max_abs_err"],
+        "ms": ricker_kernel["ms"],
+        "plain_ms": ricker_kernel["plain_ms"],
+        "bound_ms": ricker_kernel["bound_ms"],
+        "bound_by": ricker_kernel["bound_by"],
+        "bound_share": ricker_kernel["bound_ms"] / ricker_kernel["ms"],
+        "library_ms": None,
+        "shape": ricker_kernel["shape"],
+        "bound_terms_ms": ricker_kernel["bound_terms_ms"],
     })
     for e in entries:
         check(e["launches"] > 0 or only,

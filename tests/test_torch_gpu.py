@@ -805,6 +805,127 @@ def test_sir_kernel_bits_equal_the_chain(cuda, population, t_steps, i0,
     assert (got[:, 5] > 0).mean() > 0.25
 
 
+RICKER_ROWS = (1, 4097, 131_073)
+
+
+def _ricker_kernel_inputs(n, dev, seed, dtype):
+    """params [n, 3] over ``ricker_1m``'s prior box (log r in [2, 5], sigma
+    in [0.05, 1], phi in [2, 30]) and past it, an eighth of the rows each:
+    log r below its clamp at 0 and above its clamp at 6, |sigma| under its
+    clamp at 1e-3 and over its clamp at 2, |phi| under its clamp at 1e-2
+    and over its clamp at 50, phi in [8, 25] (means straddling 10 and 20
+    as the population swings); every sixteenth row at Wood's truth (3.8,
+    0.3, 10), the first of them row 0, where the means near 10 put draws
+    past the grid; a NaN in each parameter in rows 1-3. Seeds over the
+    whole int64 range (the hash reads their low 32 bits) and the
+    production range [0, 2^31 - 1)."""
+    rng = np.random.default_rng(seed)
+    params = rng.uniform([2.0, 0.05, 2.0], [5.0, 1.0, 30.0], (n, 3))
+    k = n // 8
+    sign = rng.choice([-1.0, 1.0], k)
+    params[k:2 * k, 0] = rng.uniform(-2.0, 0.5, k)
+    params[2 * k:3 * k, 0] = rng.uniform(5.5, 9.0, k)
+    params[3 * k:4 * k, 1] = rng.uniform(-3e-3, 3e-3, k)
+    params[4 * k:5 * k, 1] = sign * rng.uniform(1.5, 4.0, k)
+    params[5 * k:6 * k, 2] = rng.uniform(-0.03, 0.03, k)
+    params[6 * k:7 * k, 2] = sign * rng.uniform(40.0, 90.0, k)
+    params[7 * k:, 2] = rng.uniform(8.0, 25.0, n - 7 * k)
+    params[::16] = (3.8, 0.3, 10.0)
+    for j in range(min(n - 1, 3)):
+        params[1 + j, j] = np.nan
+    seeds = rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64)
+    seeds[::2] = rng.integers(0, 2**31 - 1, (n + 1) // 2)
+    return (torch.as_tensor(params, dtype=dtype, device=dev),
+            torch.as_tensor(seeds, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", RICKER_ROWS)
+def test_ricker_kernel_bits_equal_the_chain(cuda, n, dtype):
+    """The hand kernel against the PyTorch chain it replaces
+    (``metrics_from_noise`` with the seeds' counter noise) on ragged row
+    counts, in float32 and float64: all six metrics to the bit, the grid
+    and clamped counts equal, 150 steps a row counted by each, one launch
+    a call and no host sync. The kernel's contract is a row's bits in any
+    batch of two rows or more, where ``torch.cumsum`` scans each row alone
+    in one order (a lone row goes to another scan: the kernel's header), so
+    a single row is held to the chain's on that row twice over."""
+    from abcsmc_tpu_torch.models.simulators import (
+        CounterNoise, make_ricker_simulator,
+    )
+    from abcsmc_tpu_torch.ops.sim_kernels import ricker_loop
+
+    kernel, chain = make_ricker_simulator(), make_ricker_simulator()
+    params, seeds = _ricker_kernel_inputs(n, cuda, 30 + n, dtype)
+    counts = kernel.device_counts(cuda)
+    launches = ricker_loop.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = kernel.batch_fn(params, seeds)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ricker_loop.launches == launches + 1
+    reps = 2 if n == 1 else 1
+    want = chain.metrics_from_noise(
+        params.repeat(reps, 1), CounterNoise(seeds.repeat(reps), dtype))
+    assert kernel.row_steps == 150 * n and chain.row_steps == 150 * n * reps
+    assert got.dtype == dtype and got.shape == (n, 6)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    for j in range(6):
+        for r in range(reps):
+            np.testing.assert_array_equal(
+                got[:, j], want[r * n:(r + 1) * n, j], err_msg=str(j))
+    assert torch.equal(counts * reps, chain.device_counts(cuda))
+    if n > 1:
+        # draws on the grid and on the normal
+        assert 0 < counts[0] < 100 * n
+    if n > 100_000:
+        # Wood's truth puts a few draws past the grid
+        assert 0 < counts[1] < counts[0]
+    assert np.isfinite(got).all()
+
+
+def test_ricker_kernel_replayed_in_a_graph_equals_the_chain(cuda):
+    """The kernel recorded into a CUDA graph with the row statistics after
+    it (static [N, 6] metrics in the graph's pool) and replayed twice with
+    new rows copied in: each replay's metrics and counts equal the chain's
+    on those rows to the bit, and each replay counts the one launch the
+    graph holds."""
+    from abcsmc_tpu_torch.models.simulators import (
+        CounterNoise, make_ricker_simulator,
+    )
+    from abcsmc_tpu_torch.ops.sim_kernels import ricker_loop
+
+    sim, chain = make_ricker_simulator(), make_ricker_simulator()
+    n = 131_073
+    params, seeds = _ricker_kernel_inputs(n, cuda, 1, torch.float32)
+    counts = sim.device_counts(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sim.batch_fn(params, seeds)          # the build and load
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    launches = ricker_loop.launches
+    with kernels.graph_capture_counts() as held, torch.cuda.graph(graph):
+        out = sim.batch_fn(params, seeds)
+    assert held["ricker_loop"] == 1 and ricker_loop.launches == launches
+    for k, seed in enumerate((2, 3), start=1):
+        p, s = _ricker_kernel_inputs(n, cuda, seed, torch.float32)
+        params.copy_(p)
+        seeds.copy_(s)
+        counts.zero_()
+        chain.device_counts(cuda).zero_()
+        graph.replay()
+        kernels.count_replay(held, "high")
+        assert ricker_loop.launches == launches + k
+        want = chain.metrics_from_noise(p, CounterNoise(s, torch.float32))
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(out.cpu().numpy(), want.cpu().numpy())
+        assert torch.equal(counts, chain.device_counts(cuda))
+
+
 def _ricker_inputs(n, dev, seed):
     """params [n, 3] over ``ricker_1m``'s prior box (log r in [2, 5], sigma
     in [0.05, 1], phi in [2, 30]), a sixteenth of them at Wood's truth
@@ -859,18 +980,24 @@ def test_ricker_counts_and_times_on_both_routes(cuda):
     fused (sets 2-5 replay a captured step): the same rows, and the same
     ``sim_grid_steps`` and ``sim_clamped_draws`` a row in every set (a
     replay's counted by the graph itself); 150 steps a row; the row
-    statistics timed on eager sets only."""
+    statistics timed on eager sets only; one launch of the loop's kernel
+    a set on each route."""
     import json
     from pathlib import Path
 
     raw = json.loads((Path(__file__).resolve().parent.parent / "examples"
                       / "ricker.json").read_text())
     raw.update(num_samples=1 << 14, database_filename="")
+    from abcsmc_tpu_torch.ops.sim_kernels import ricker_loop
+
     runs = {}
     for dispatch in ("sequential", "fused"):
         a = AbcSmc(dict(raw, device_dispatch=dispatch), device="cuda")
+        ricker_loop.launches = 0
         with redirect_stderr(io.StringIO()):
             a.run_device(seed=4)
+        # the loop's kernel once a set, a replay's as captured
+        assert ricker_loop.launches == 6, dispatch
         runs[dispatch] = [e for e in a.timings
                           if e["op"] == "device_generation"], a
     (seq, a_seq), (fused, a_fused) = runs["sequential"], runs["fused"]

@@ -103,7 +103,7 @@ def test_the_kernel_source_keeps_the_chain_constants():
     the wrapper's, one a dtype; the longest loop the wrapper takes keeps
     the last hash word of a day, 4 t + 3, within 32 bits (the C entry's
     own check)."""
-    text = (_build.CSRC / "sir_loop.cu").read_text()
+    text = _build.source_bytes(_build.CSRC / "sir_loop.cu").decode()
     assert f"kSeedSalt = 0x{simulators._SEED_SALT:X}u;" in text
     for name, *_ in sim_kernels._ENTRIES.values():
         assert f'extern "C" int {name}(' in text
@@ -148,13 +148,14 @@ def test_importing_builds_nothing(tmp_path):
 
 def test_kernel_sass_reads_every_source_by_default(monkeypatch):
     """With no ``--source``, ``kernel_sass`` analyses every ``csrc/*.cu``:
-    the weight kernel and the sir loop."""
+    the weight kernel and the sir and ricker loops."""
     seen = []
     monkeypatch.setattr(_build, "find_nvcc", lambda: "nvcc")
     monkeypatch.setattr(kernel_sass, "analyze",
                         lambda src, match, sass_dir: seen.append(src) or [])
     assert kernel_sass.main([]) == 0
-    assert [p.name for p in seen] == ["mixture_logsumexp.cu", "sir_loop.cu"]
+    assert [p.name for p in seen] == ["mixture_logsumexp.cu",
+                                      "ricker_loop.cu", "sir_loop.cu"]
     seen.clear()
     assert kernel_sass.main(["--source", "x.cu"]) == 0
     assert seen == [Path("x.cu")]

@@ -211,7 +211,8 @@ def test_host_span_adds_its_seconds_to_its_field():
 def test_launch_counter_counts_replays_not_captures(monkeypatch):
     """The graph accounting of ``kernel_launches`` against a stand-in for
     the C entry's count: what a capture records comes off every count, the
-    sir kernel's too, and each replay adds what the graph holds."""
+    sir and ricker kernels' too, and each replay adds what the graph
+    holds."""
     c_count = [100]
     monkeypatch.setattr(kernels, "_launch_count", lambda: lambda: c_count[0])
     monkeypatch.setitem(_build._loaded, "mixture_logsumexp", object())
@@ -220,22 +221,28 @@ def test_launch_counter_counts_replays_not_captures(monkeypatch):
     monkeypatch.setattr(kernels.mixture_logsumexp, "launches_by_precision",
                         dict.fromkeys(kernels.PRECISIONS, 0))
     monkeypatch.setattr(sim_kernels.sir_loop, "launches", 5)
+    monkeypatch.setattr(sim_kernels.ricker_loop, "launches", 9)
     before = kernels.kernel_launches()
     with kernels.graph_capture_counts() as held:
-        # one auto call recorded: prologue + 2 passes; one sir loop
+        # one auto call recorded: prologue + 2 passes; one sir loop, two
+        # ricker loops
         c_count[0] += 3
         kernels.count_launches(2, "high")
         sim_kernels.sir_loop.launches += 1
-    assert held == {"partial": 2, "kernels": 3, "sir_loop": 1}
+        sim_kernels.ricker_loop.launches += 2
+    assert held == {"partial": 2, "kernels": 3, "sir_loop": 1,
+                    "ricker_loop": 2}
     assert kernels.kernel_launches() == before
     assert kernels.mixture_logsumexp.launches == 7
     assert kernels.mixture_logsumexp.launches_by_precision["high"] == 0
     assert sim_kernels.sir_loop.launches == 5
+    assert sim_kernels.ricker_loop.launches == 9
     for rep in range(1, 4):
         kernels.count_replay(held, "high")
         assert kernels.kernel_launches() == before + 3 * rep
         assert kernels.mixture_logsumexp.launches == 7 + 2 * rep
         assert sim_kernels.sir_loop.launches == 5 + rep
+        assert sim_kernels.ricker_loop.launches == 9 + 2 * rep
     # eager launches after it still count as the C entry counts them
     c_count[0] += 2
     assert kernels.kernel_launches() == before + 11
